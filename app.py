@@ -40,7 +40,7 @@ def main() -> int:
     import dataclasses
 
     st.title("light_transport_tpu")
-    st.caption("TPU-native Monte Carlo light transport")
+    st.caption("JAX Monte Carlo light transport")
 
     scene_name = st.sidebar.selectbox(
         "Scene", ["lts (Cornell + cone)", "glass", "teapot (OBJ)"]

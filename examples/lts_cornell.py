@@ -7,7 +7,7 @@ then run the control-variates variance-reduction pass — plain image
 dive at four hand-picked pixels (src/path_tracing.py:310-364).
 
 The reference renders 150x150x12spp in 73-110 s on CPU; this runs the same
-scene end-to-end jitted in well under a second steady-state on one TPU chip.
+scene end-to-end jitted (PERF.md has the time on one GPU).
 """
 
 import numpy as np

@@ -2,9 +2,9 @@
 
 Mirrors the reference's soft_shadow.ipynb — its heaviest published workload:
 a ~123k-triangle scene at 400x400, 10 spp, depth 3, which it renders in
-525 s on CPU.  Here the same triangle count routes through the
-cluster-culled Pallas MXU intersector and finishes in ~15 s on one chip
-(PERF.md).  Pass --quick for a 200x200x4spp variant.
+525 s on CPU.  Here the mesh carries a BVH and every ray walks it
+(models/presets.soft_shadow_scene).  Pass --quick for a 200x200x4spp
+variant.
 """
 
 import sys
@@ -14,47 +14,15 @@ import numpy as np
 from _common import report, save_image, timed_twice
 
 from light_transport_tpu.api import render
-from light_transport_tpu.core.config import RenderConfig
-from light_transport_tpu.scene.cornell import sphere_triangles
-from light_transport_tpu.scene.geometry import (
-    TriangleMesh,
-    concat_meshes,
-    quad_triangles,
-)
-from light_transport_tpu.scene.material import Material, MaterialTable, presets
-from light_transport_tpu.scene.scene import Scene
-
-
-def build_scene():
-    sph = sphere_triangles(center=(0, 1, 0), radius=1.5, n_theta=176,
-                           n_phi=352)  # ~123k triangles
-    floor = quad_triangles((-8, -0.5, -8), (-8, -0.5, 8), (8, -0.5, 8),
-                           (8, -0.5, -8))
-    lq = quad_triangles((-1.5, 6, -1.5), (1.5, 6, -1.5), (1.5, 6, 1.5),
-                        (-1.5, 6, 1.5))
-    mesh = concat_meshes([
-        TriangleMesh.build(sph, np.zeros(len(sph), np.int32)),
-        TriangleMesh.build(floor, np.asarray([1, 1], np.int32)),
-        TriangleMesh.build(lq, np.asarray([2, 2], np.int32),
-                           np.asarray([True, True])),
-    ])
-    mats = MaterialTable.build([
-        Material(color=presets.TURQUOISE),
-        Material(color=presets.WHITE_2),
-        Material(color=presets.WHITE, emission=8.0),
-    ])
-    return Scene.build(mesh, mats, camera=[0.0, 1.0, 7.0]).with_bvh()
+from light_transport_tpu.models.presets import soft_shadow_scene
 
 
 def main():
     quick = "--quick" in sys.argv
-    scene = build_scene()
     if quick:
-        cfg = RenderConfig(width=200, height=200, spp=4, max_depth=3,
-                           f_distance=3.5)
+        scene, cfg = soft_shadow_scene(width=200, height=200, spp=4)
     else:
-        cfg = RenderConfig(width=400, height=400, spp=10, max_depth=3,
-                           f_distance=3.5)
+        scene, cfg = soft_shadow_scene()
     img, t_jit, t_steady = timed_twice(
         lambda: np.asarray(render(scene, cfg, seed=0)))
     p = save_image(img, "soft_shadow.png", gamma=2.2)

@@ -1,6 +1,6 @@
-"""light_transport_tpu — a TPU-native Monte Carlo light-transport framework.
+"""light_transport_tpu — a JAX Monte Carlo light-transport framework.
 
-A ground-up JAX/XLA/Pallas rebuild of the capability surface of
+A ground-up JAX/XLA rebuild of the capability surface of
 ``zhouyifan233/light-transport`` (a numba-JIT CPU path tracer; see SURVEY.md):
 
 - triangle-mesh scenes (Cornell box, OBJ meshes, procedural glass demo)
@@ -15,7 +15,7 @@ A ground-up JAX/XLA/Pallas rebuild of the capability surface of
   layered slabs, MCML-style reflectance/fluence tallies)
 
 Design: SoA state arrays stepped in masked lockstep supersteps, counter-based
-threefry RNG, scatter-add tallies, photon/pixel batches sharded over a TPU
+threefry RNG, scatter-add tallies, photon/pixel batches sharded over a device
 mesh with psum-reduced tallies.  No per-ray Python objects anywhere.
 """
 

@@ -28,7 +28,7 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from light_transport_tpu.core import struct
 
 from light_transport_tpu.ops.intersect import Hit, T_EPS
 from light_transport_tpu.scene.geometry import TriangleMesh
@@ -55,13 +55,12 @@ class BVH:
     count: jnp.ndarray  # (M,) int32: prim count (leaf) or 0 (interior)
     axis: jnp.ndarray  # (M,) int32 split axis (interior)
     # fused per-iteration records (the only arrays the traversal gathers —
-    # one row per table per step instead of 6-8 scattered columns, which is
-    # what the TPU gather path wants):
+    # one row per table per step instead of 6-8 scattered columns):
     node_rec: jnp.ndarray  # (M, 16) f32 [min3, max3, first:i32, count:i32,
     # skip:i32 (bitcast rope: next DFS node outside this subtree), pad...]
     leaf_rec: jnp.ndarray  # (M, 8 + 9*max_leaf) f32: per-node copy of its
     # leaf triangles [v0,e1,e2]*max_leaf (zeros for interior nodes)
-    max_leaf: int = struct.field(pytree_node=False, default=4)
+    max_leaf: int = struct.field(static=True, default=4)
 
     @property
     def num_nodes(self) -> int:
@@ -321,7 +320,7 @@ def intersect_bvh(
     Each lane carries only a node cursor; hit-interior advances to the left
     child (``node+1`` in DFS order), everything else follows the rope
     (``skip[node]``).  No per-lane stack means the hot loop is pure gathers
-    + selects — no scatter writes — which is what the TPU VPU wants.
+    + selects — no scatter writes.
     Replaces reference ``intersect_bvh`` (src/bvh_new.py:413-482) and its
     O(N) ``visited[]`` fallback.
     """

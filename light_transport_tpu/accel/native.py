@@ -1,14 +1,18 @@
 """ctypes bridge to the C++ BVH builder (native/bvh_builder.cpp).
 
-Builds ``liblt_native.so`` on first use if the toolchain is present; callers
-(accel/bvh.py::build) fall back to the numpy builder when unavailable.
+The shared library is not committed: :func:`build_library` compiles it from
+the committed source on first use, and again whenever the source is newer
+than the library.  Callers (accel/bvh.py::build) fall back to the numpy
+builder when no C++ compiler is available.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import shutil
 import subprocess
+import tempfile
 from typing import Optional
 
 import numpy as np
@@ -17,10 +21,40 @@ _NATIVE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "native",
 )
+_SRC_PATH = os.path.join(_NATIVE_DIR, "bvh_builder.cpp")
 _LIB_PATH = os.path.join(_NATIVE_DIR, "liblt_native.so")
+CXXFLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall", "-Wextra", "-shared"]
 
 _lib = None
 _lib_failed = False
+
+
+def _stale(src: str, lib: str) -> bool:
+    return (not os.path.exists(lib)
+            or os.path.getmtime(src) > os.path.getmtime(lib))
+
+
+def build_library(src: str = _SRC_PATH, lib: str = _LIB_PATH) -> str:
+    """Compile ``src`` into ``lib`` unless ``lib`` is newer; returns ``lib``.
+
+    The compiler writes a temporary file in the target directory that is
+    then renamed over ``lib``, so concurrent builders (test workers) never
+    load a half-written library."""
+    if not _stale(src, lib):
+        return lib
+    cxx = os.environ.get("CXX") or shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("no C++ compiler found for the native BVH builder")
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(lib))
+    os.close(fd)
+    try:
+        subprocess.run([cxx, *CXXFLAGS, "-o", tmp, src], check=True,
+                       capture_output=True, timeout=120)
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -30,13 +64,7 @@ def _load() -> Optional[ctypes.CDLL]:
     if _lib_failed:
         return None
     try:
-        if not os.path.exists(_LIB_PATH):
-            subprocess.run(
-                ["make", "-s", "-C", _NATIVE_DIR],
-                check=True,
-                capture_output=True,
-                timeout=120,
-            )
+        build_library()
         lib = ctypes.CDLL(_LIB_PATH)
         lib.lt_build_bvh.restype = ctypes.c_int64
         lib.lt_build_bvh.argtypes = [

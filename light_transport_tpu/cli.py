@@ -73,6 +73,10 @@ def main(argv=None):
     _add_bench(sub)
     args = parser.parse_args(argv)
 
+    from light_transport_tpu.core.cache import enable_compile_cache
+
+    enable_compile_cache()
+
     if args.cmd == "bench":
         # repo-root bench.py is not a package module: resolve it relative
         # to this file so `python -m light_transport_tpu.cli bench` works
@@ -87,8 +91,7 @@ def main(argv=None):
         spec = importlib.util.spec_from_file_location("bench", bench_py)
         bench = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(bench)
-        bench.main()
-        return 0
+        return bench.main([])
 
     import jax
     import numpy as np

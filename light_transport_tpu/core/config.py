@@ -147,38 +147,6 @@ class PhotonRunConfig:
     vol_dx: float = 0.01
     vol_dy: float = 0.01
     vol_dz: float = 0.01
-    # Pallas-engine spatial-tally stride: the (r,z)/volume grids are only
-    # deposited into every Nth superstep, with the deposit scaled by N —
-    # statistically unbiased (stratified thinning), and it divides the
-    # event-stream scatter cost that dominates giant-grid runs.  Exit
-    # tallies, the absorbed scalar, and all counters stay exact every step.
-    # 1 = deposit every step (the MCML convention; always used by the XLA
-    # engine and by chi² parity runs).
-    tally_stride: int = 1
-    # Separate stride for the 3-D volume deposits (0 = same as
-    # tally_stride).  The volume has ~8x the bins of the (r,z) grid and the
-    # fold is scatter-bound at ~10 ns/event (PERF.md), so thinning it
-    # harder than the headline (r,z) physics grid buys back most of the
-    # fold cost at a variance cost only the 2M-bin volume pays.
-    vol_stride: int = 0
-    # Pallas windowed engine: rank roulette/absorption-dead lanes against
-    # the launch quota and respawn them every N stride windows instead of
-    # only at block start (0 = block start only — the default, and the
-    # semantics the flat-stream engine always uses).  Block-start-only
-    # respawn idles a lane from its death to the block end — measured 21%
-    # of all lane-steps at the full_scale preset.  Lanes that died by
-    # EXIT are excluded (they wait for the block-end record flush): ~74%
-    # of full_scale deaths are roulette, so most of the idle time comes
-    # back with no extra tally flushes (a per-window exit/detector flush
-    # variant measured +13 ms/block and lost on net).  Requires the
-    # windowed (rz_mm) tally mode.
-    respawn_windows: int = 0
-    # NOTE: recovering the remaining exit-dead idle time (in-window
-    # respawn / saved two-slot exit records) was built, measured, and
-    # REVERTED in r4 — both variants lose net throughput on hardware
-    # (PERF.md §r4 negative results: a lax.cond in the step loop breaks
-    # Mosaic pipelining for +5.6 ms/block; the extra loop carries alone
-    # cost +4.6 ms of register pressure against a 7-point occupancy win).
     seed: int = 0
 
 
@@ -188,7 +156,7 @@ class MeshTopology:
 
     Only data parallelism is semantically required for MC transport
     (SURVEY.md §2): photon/pixel batches shard over ``batch``; the scene,
-    BVH and medium tables replicate per chip; tallies psum over ICI.
+    BVH and medium tables replicate per device; tallies psum over the mesh.
     """
 
     batch_axis: str = "batch"

@@ -1,9 +1,9 @@
 """Vector math over SoA ``(..., 3)`` arrays.
 
-TPU-native replacement for the reference's per-vector helpers
+Array replacement for the reference's per-vector helpers
 (`src/vectors.py:5-26`, `src/utils.py:71-80` in the reference tree): every op
 is batched over leading dims so the whole photon/ray population is processed
-by one VPU-vectorized call instead of a Python loop.
+by one vectorized call instead of a Python loop.
 """
 
 from __future__ import annotations
@@ -11,8 +11,8 @@ from __future__ import annotations
 import jax.numpy as jnp
 
 # Ray-offset epsilon.  Deliberately 100x the reference's EPSILON = 1e-6
-# (src/constants.py:12): the reference runs float64, we default to float32
-# on TPU, where 1e-6 offsets re-intersect the spawning surface
+# (src/constants.py:12): the reference runs float64, we default to float32,
+# where 1e-6 offsets re-intersect the spawning surface
 # ("shadow acne").
 EPSILON = 1e-4
 

@@ -2,8 +2,7 @@
 
 The reference ships a Streamlit GUI (app.py:43-260: widget panel -> scene
 build -> render -> image + elapsed/triangle-count readout).  Streamlit is
-not installable in this image (no egress — attempt recorded in
-BACKLOG.md), so this module provides the same driver surface with the
+not installable without network access, so this module provides the same driver surface with the
 standard library only: a form of render controls, a render-on-submit
 endpoint, and the image + stats readout.
 

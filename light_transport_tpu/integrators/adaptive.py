@@ -18,7 +18,7 @@ same integral regardless of where it is truncated) and the residual
 correlation is practically negligible, but strict finite-``n``
 unbiasedness is a uniform-sampler property only.
 
-TPU-first shape discipline: every round traces the SAME static lane count
+Static-shape discipline: every round traces the SAME static lane count
 ``B = H*W*spp / rounds``; the only thing that changes is a device-side
 lane→pixel map built from the allocation by prefix sum + ``searchsorted``
 (no ragged arrays, no host round-trip in the loop body, one compiled

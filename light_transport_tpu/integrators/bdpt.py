@@ -3,7 +3,7 @@
 The reference ships BDPT as an unfinished module (src/bdpt.py — undefined
 symbols at :293,:295,:430, a Vertex constructor its callers can't use, and
 no notebook ever produced a render; SURVEY.md §0).  This module *completes*
-the capability it sketched, TPU-natively:
+the capability it sketched, as array programs:
 
 - camera and light subpaths are random walks stored in **static-shape SoA
   vertex arrays** ``(lanes, max_len, ...)`` with validity masks (the
@@ -174,8 +174,8 @@ def random_walk(
     # carried interior absorption (the PathState med_sig_a convention,
     # one-level outer memory): subpath segments inside transmissive
     # objects attenuate by Beer-Lambert, so BDPT estimates the same
-    # transport as the path tracer on absorbing-media scenes (VERDICT r3
-    # item 6).  In-scattering (sigma_s) stays out of scope — BDPT has no
+    # transport as the path tracer on absorbing-media scenes.
+    # In-scattering (sigma_s) stays out of scope — BDPT has no
     # medium-vertex strategies; use the path tracer for scattering media.
     sig_a = jnp.zeros((n, 3))
     out_sig_a = jnp.zeros((n, 3))
@@ -681,11 +681,9 @@ def _light_family(scene: Scene):
         return "area", 0.0
     import numpy as np
 
-    from light_transport_tpu.core.hostio import host_get
-
-    rad = np.asarray(host_get(scene.lights.radiance), np.float64)
-    area = np.asarray(host_get(scene.lights.area), np.float64)
-    inten = np.asarray(host_get(scene.point_lights.intensity), np.float64)
+    rad = np.asarray(scene.lights.radiance, np.float64)
+    area = np.asarray(scene.lights.area, np.float64)
+    inten = np.asarray(scene.point_lights.intensity, np.float64)
     area_power = float(np.pi * (rad * area[:, None]).sum())
     point_power = float(4.0 * np.pi * inten.sum())
     if area_power <= 0.0:

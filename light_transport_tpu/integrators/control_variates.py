@@ -9,7 +9,7 @@ then per pixel solves the zero-variance linear correction
 control`` with ``control = -0.5 * grad_log_pdf`` (LTS.ipynb cell 32,
 including its singular-covariance fallback).
 
-TPU-native upgrades (all deliberate, documented):
+Upgrades (all deliberate, documented):
 
 - **exact mode** (default): because a path is a pure function of its uniform
   tensor, the per-bounce log-pdf gradients are one ``jax.grad`` of the
@@ -24,6 +24,7 @@ TPU-native upgrades (all deliberate, documented):
 
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple
 
 import jax
@@ -153,13 +154,17 @@ def cv_correct(samples: jnp.ndarray, control: jnp.ndarray,
         sc = jnp.concatenate([s, c], axis=1)  # (S, 3+C)
         mean = sc.mean(axis=0, keepdims=True)
         x = sc - mean
-        cov = x.T @ x  # notebook uses the uncentered-by-1/S form; scale
+        # float32 products run as TF32 on GPUs unless pinned (10-bit
+        # mantissa); the covariance of near-collinear score controls then
+        # loses the digits pinv needs, so every product here is HIGHEST
+        mm = partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
+        cov = mm(x.T, x)  # notebook uses the uncentered-by-1/S form; scale
         # cancels inside alpha = -Sigma_cs^T pinv(Sigma_cc)
         sdim = s.shape[1]
         sigma_cs = cov[:sdim, sdim:].T  # (C, 3)
         sigma_cc = cov[sdim:, sdim:]  # (C, C)
-        alpha = -(sigma_cs.T @ jnp.linalg.pinv(sigma_cc))  # (3, C)
-        zv = alpha @ c.T  # (3, S)
+        alpha = -mm(sigma_cs.T, jnp.linalg.pinv(sigma_cc))  # (3, C)
+        zv = mm(alpha, c.T)  # (3, S)
         corrected = s + zv.T
         bad = ~jnp.all(jnp.isfinite(corrected))
         corrected = jnp.where(bad, s, corrected)

@@ -72,14 +72,7 @@ def full_scale():
 
     The 3-D cartesian volume (128^3 cells, 0.2 mm pitch) covers +/-1.28 cm
     around the beam axis and 2.56 cm of depth — the same physical extent as
-    the (r, z) MCML grid.  The spatial tallies are strided (unbiased
-    stratified thinning, see PhotonRunConfig): the fold is scatter-bound at
-    ~10 ns/event (PERF.md §fold ladder), so the (r,z) grid samples every
-    32nd step (~13 deposits/photon at the ~400-step mean lifetime, 1.3e9
-    total at 1e8 photons) and the 2M-bin volume every 64th (~6/photon,
-    6.4e8 total).  Measured full-tally throughput 1.34e9 steps/s/chip at
-    these settings vs 0.89e9 at the round-2 stride-16 defaults; exits,
-    the detector image, and all counters stay exact every step.
+    the (r, z) MCML grid.  Every tally is deposited at every step.
     """
     medium = LayeredMedium.build(
         [MediumConfig(mu_a=0.5, mu_s=50.0, g=0.9, n=1.37)]
@@ -88,9 +81,7 @@ def full_scale():
                           dr=0.005, dz=0.005,
                           detector_nx=512, detector_extent=1.28,
                           vol_nx=128, vol_ny=128, vol_nz=128,
-                          vol_dx=0.02, vol_dy=0.02, vol_dz=0.02,
-                          tally_stride=32, vol_stride=64,
-                          respawn_windows=1)
+                          vol_dx=0.02, vol_dy=0.02, vol_dz=0.02)
     return medium, cfg
 
 
@@ -205,6 +196,47 @@ def glass_scene(width=100, height=100, spp=4, max_depth=3):
     return scene, cfg
 
 
+def soft_shadow_scene(width=400, height=400, spp=10, max_depth=3):
+    """The reference's soft_shadow.ipynb — its heaviest published workload:
+    a ~123k-triangle sphere over a floor under a large area light, at
+    400x400, 10 spp, depth 3 (the reference renders it in 525 s on CPU).
+    The mesh carries a BVH."""
+    from light_transport_tpu.scene.cornell import sphere_triangles
+    from light_transport_tpu.scene.geometry import (
+        TriangleMesh,
+        concat_meshes,
+        quad_triangles,
+    )
+    from light_transport_tpu.scene.material import (
+        Material,
+        MaterialTable,
+        presets,
+    )
+    from light_transport_tpu.scene.scene import Scene
+
+    sph = sphere_triangles(center=(0, 1, 0), radius=1.5, n_theta=176,
+                           n_phi=352)  # 123,200 triangles
+    floor = quad_triangles((-8, -0.5, -8), (-8, -0.5, 8), (8, -0.5, 8),
+                           (8, -0.5, -8))
+    lq = quad_triangles((-1.5, 6, -1.5), (1.5, 6, -1.5), (1.5, 6, 1.5),
+                        (-1.5, 6, 1.5))
+    mesh = concat_meshes([
+        TriangleMesh.build(sph, np.zeros(len(sph), np.int32)),
+        TriangleMesh.build(floor, np.asarray([1, 1], np.int32)),
+        TriangleMesh.build(lq, np.asarray([2, 2], np.int32),
+                           np.asarray([True, True])),
+    ])
+    mats = MaterialTable.build([
+        Material(color=presets.TURQUOISE),
+        Material(color=presets.WHITE_2),
+        Material(color=presets.WHITE, emission=8.0),
+    ])
+    scene = Scene.build(mesh, mats, camera=[0.0, 1.0, 7.0]).with_bvh()
+    cfg = RenderConfig(width=width, height=height, spp=spp,
+                       max_depth=max_depth, f_distance=3.5)
+    return scene, cfg
+
+
 PRESETS: Dict[str, Callable] = {
     "demo": demo_homogeneous,
     "multilayer": multilayer_mismatch,
@@ -213,4 +245,5 @@ PRESETS: Dict[str, Callable] = {
     "lts": lts_scene,
     "glass": glass_scene,
     "point": point_light_scene,
+    "soft_shadow": soft_shadow_scene,
 }

@@ -1,13 +1,11 @@
-"""Intersector dispatch: pick the fastest correct backend per scene.
+"""Intersector dispatch: pick the intersection routine per scene.
 
-Measured on TPU v5e (131k rays, 6320-tri teapot, PERF.md):
+Selection is static per scene (known at trace time):
 
-- fused Pallas MXU brute force: 39 ms   <- best for small/mid meshes
-- XLA MXU brute force:          130 ms  (HBM-bound on the (N,4T) product)
-- roped BVH + tail compaction:  232 ms  <- wins for very large meshes
-- chunked VPU brute force:      CPU fallback (Pallas needs a real TPU)
-
-Selection is static per scene (shapes + platform known at trace time).
+- ``scene.watertight``: the watertight brute force (robustness mode);
+- ``scene.bvh`` present: the roped stackless BVH walk (accel/bvh.py);
+- otherwise: the masked Möller–Trumbore brute force (ops/intersect.py),
+  optionally chunked over rays by ``ray_chunk``.
 """
 
 from __future__ import annotations
@@ -17,157 +15,45 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 
+from light_transport_tpu.accel import bvh as bvh_mod
 from light_transport_tpu.ops import intersect
 from light_transport_tpu.scene.scene import Scene
 
-# Crossover vs the roped BVH walk (PERF.md §mesh-scale crossover): at 998k
-# tris the MXU path wins 2.2x on mixed rays, so the cap sits at 1M.  The
-# r3 A_MAX id-list cap removed the old SMEM cliff — the kernel now RUNS at
-# 4.2M tris and wins 3.2x on coherent camera primaries — but cull-overflow
-# tiles brute-force all clusters, losing 5.6x on sorted-but-spread bounce
-# rays (scripts/bench_mesh_scale.py).  Render traffic past depth 0 is
-# bounce-dominated and dispatch cannot see ray provenance by default, so
-# >1M routes to the BVH — UNLESS the caller passes ``coherent=True`` (the
-# integrators' depth-0 camera primaries), which rides the MXU at any size.
-MXU_MAX_TRIS = 1_048_576
-
-# Treelet traversal scheduling (scenes with .treelet on TPU), measured
-# 2026-08-19 on the 4.2M-tri regimes (PERF.md §treelet-wavefront,
-# artifacts/treelet_wavefront.json, all rows bit-exact vs the roped walk):
-#   - incoherent rays (bounce/shadow/shell): the wavefront driver's
-#     per-pass cursor re-sort fixes the single-launch kernel's lockstep
-#     collapse — bounce 2.99 s vs single-launch 3.64 s vs roped 6.17 s
-#     (2.06x the roped walk at max_passes=12);
-#   - coherent camera grids: the single-launch kernel wins outright
-#     (0.53 s vs the wavefront's 1.46-2.62 s — re-sorting already-sorted
-#     lanes pays pure overhead), so ``coherent=True`` traffic keeps the
-#     dir-Morton pre-sorted single launch.
-# loads_per_pass settled at 1 by three same-process A/Bs (2026-08-19/20,
-# artifacts/treelet_wavefront_sweep2.json + tw_sweepT.json): 1:12 beat
-# 2:12 on bounce in all three (2.82/2.81/2.76 vs 2.86/2.97/2.92 s) and
-# tied shell/camera.  The same-process T sweep (tw_sweepT.json) kept
-# T=512: T=1024 wins only the single-launch bounce route (3.17 vs
-# 3.63 s), which dispatch never takes — on the routes actually taken it
-# is neutral (camera 0.53/0.53, wave bounce 2.76/2.81) to worse (shell
-# 2.31 vs 2.23 s).  Flip TREELET_WAVEFRONT off to force single-launch
-# everywhere.
-TREELET_WAVEFRONT = True
-WAVEFRONT_LOADS_PER_PASS = 1
-WAVEFRONT_MAX_PASSES = 12
-
-
-def _platform() -> str:
-    return jax.devices()[0].platform
-
-
-def _use_pallas_mxu(scene: Scene, coherent: bool = False) -> bool:
-    if scene.watertight or _platform() == "cpu":
-        return False
-    t = scene.mesh.v0.shape[0]
-    if t > MXU_MAX_TRIS:
-        # camera-grid primaries keep tight cull tubes (few admitted
-        # clusters/tile) and beat the BVH 3.2x even at 4.2M tris; spread
-        # rays overflow the A_MAX id lists and lose 5.6x (PERF.md).
-        # With treelet slabs attached the treelet kernel wins primaries
-        # too (0.53 s vs the MXU's 1.53 s at 4.2M tris), so it takes
-        # everything.
-        return coherent and scene.treelet is None
-    # tiny scenes: the plain fused VPU brute force is already ~free
-    return t > 48
-
 
 def scene_intersect(scene: Scene, origins, directions,
-                    ray_chunk: Optional[int] = None, active=None,
-                    coherent: bool = False):
+                    ray_chunk: Optional[int] = None, active=None):
     """Nearest-hit against the scene; returns Hit (gradients stopped).
 
     ``active``: optional (N,) bool — lanes the caller will ignore anyway
     (dead paths in a lockstep superstep).  Inactive lanes get an empty ray
-    interval (t_max = -inf), so the Pallas cluster cull drops their whole
-    footprint instead of intersecting them; they report no hit.  Purely an
-    occupancy optimization: callers already mask results with their own
-    alive state.
-
-    ``coherent``: static hint that the batch is a coherent camera grid
-    (depth-0 primaries) — routes >MXU_MAX_TRIS scenes to the MXU
-    gather-cull kernel, where primaries beat the roped BVH 3.2x at 4.2M
-    tris (PERF.md §mesh-scale crossover).  No effect below the cap."""
+    interval (t_max = -inf), so the BVH walk retires them on its first
+    iteration; they report no hit.  Callers already mask results with their
+    own alive state."""
+    n = origins.shape[0]
+    # intersection is treated as non-differentiable everywhere (see
+    # path_tracer._bounce)
+    origins = jax.lax.stop_gradient(origins)
+    directions = jax.lax.stop_gradient(directions)
+    t_max = jnp.full((n,), jnp.inf, origins.dtype) if active is None \
+        else jnp.where(active, jnp.inf, -jnp.inf).astype(origins.dtype)
     if scene.watertight:
         # Scene.with_watertight(): every hit goes through the PBRT-style
         # watertight transform — the reference flagship's convention
         # (pc_triangle_intersect for all hits, src/intersects.py:267-445
-        # via src/utils.py:52-68).  Brute force (no BVH/MXU reorder): a
+        # via src/utils.py:52-68).  Brute force (no BVH reorder): a
         # robustness mode, not a throughput mode.
         hit = intersect.intersect_rays_watertight(
-            jax.lax.stop_gradient(origins),
-            jax.lax.stop_gradient(directions), scene.mesh,
+            origins, directions, scene.mesh, t_max=t_max,
             ray_chunk=ray_chunk)
-    elif _use_pallas_mxu(scene, coherent):
-        from light_transport_tpu.ops.pallas.intersect_kernel import (
-            intersect_rays_pallas,
-        )
-        from light_transport_tpu.ops.raysort import sorted_apply
-
-        # intersection is treated as non-differentiable everywhere (see
-        # path_tracer._bounce); stop the tangents BEFORE the pallas call —
-        # its jvp rule rejects tangent-carrying inputs even when the
-        # outputs are stop-gradiented downstream
-        n = origins.shape[0]
-        tmax = jnp.full((n,), jnp.inf, origins.dtype) if active is None \
-            else jnp.where(active, jnp.inf, -jnp.inf).astype(origins.dtype)
-        hit = sorted_apply(
-            lambda o, d, tm: intersect_rays_pallas(o, d, scene.mesh,
-                                                   t_max=tm),
-            scene.mesh,
-            jax.lax.stop_gradient(origins),
-            jax.lax.stop_gradient(directions), tmax,
-            inactive=None if active is None else ~active,
-        )
     elif scene.bvh is not None:
-        if scene.treelet is not None and _platform() == "tpu":
-            # kernel-resident traversal: bit-identical to the roped walk,
-            # 1.2-8.5x faster at 4.2M tris (PERF.md §treelet)
-            from light_transport_tpu.ops.pallas.treelet_kernel import (
-                intersect_bvh_treelet,
-                intersect_bvh_treelet_wavefront,
-            )
-            from light_transport_tpu.ops.raysort import sorted_apply
-
-            n = origins.shape[0]
-            tmax = jnp.full((n,), jnp.inf, origins.dtype) \
-                if active is None else \
-                jnp.where(active, jnp.inf, -jnp.inf).astype(origins.dtype)
-            if TREELET_WAVEFRONT and not coherent:
-                # self-sorting (per-pass cursor sort subsumes the static
-                # dir-Morton pre-sort; dead lanes pack last on their own).
-                # Coherent camera grids skip this: single-launch measured
-                # 3x faster there (header table).
-                hit = intersect_bvh_treelet_wavefront(
-                    jax.lax.stop_gradient(origins),
-                    jax.lax.stop_gradient(directions), scene.treelet,
-                    t_max=tmax,
-                    loads_per_pass=WAVEFRONT_LOADS_PER_PASS,
-                    max_passes=WAVEFRONT_MAX_PASSES)
-            else:
-                hit = sorted_apply(
-                    lambda o, d, tm: intersect_bvh_treelet(
-                        o, d, scene.treelet, t_max=tm),
-                    scene.mesh,
-                    jax.lax.stop_gradient(origins),
-                    jax.lax.stop_gradient(directions), tmax,
-                    inactive=None if active is None else ~active,
-                )
-        else:
-            from light_transport_tpu.accel import bvh as bvh_mod
-
-            hit = _chunked_bvh(
-                lambda o, d: bvh_mod.intersect_bvh(o, d, scene.mesh,
-                                                   scene.bvh),
-                origins, directions,
-            )
+        hit = _chunked_bvh(
+            lambda o, d, tm: bvh_mod.intersect_bvh(o, d, scene.mesh,
+                                                   scene.bvh, t_max=tm),
+            origins, directions, t_max,
+        )
     else:
         hit = intersect.intersect_rays(origins, directions, scene.mesh,
-                                       ray_chunk=ray_chunk)
+                                       t_max=t_max, ray_chunk=ray_chunk)
     hit = _merge_analytic(scene, hit, origins, directions)
     return jax.tree.map(jax.lax.stop_gradient, hit)
 
@@ -197,9 +83,13 @@ def _merge_analytic(scene: Scene, hit, origins, directions):
     )
 
 
-# Above this lane count the BVH walk's (N, 1)-shaped leaf slices pad 128x
-# in XLA temp space and OOM HBM; chunk the batch instead.
-BVH_LANE_CHUNK = 1 << 18
+# Above this lane count the BVH walk runs as a lax.map over chunks, which
+# bounds its scratch memory.  Chunks cost time: on an H100 the 1.6M-lane
+# 123k-triangle render (models/presets.soft_shadow_scene) took 0.47 s with
+# 2^18-lane chunks and 0.13 s as one walk, whose peak was 0.74 GB of
+# device memory (PERF.md, PR 1).  So every batch up to 2^24 lanes is one
+# walk; chunking only guards batches past that.
+BVH_LANE_CHUNK = 1 << 24
 
 
 def _chunked_bvh(fn, origins, directions, *extras):
@@ -232,75 +122,25 @@ def scene_occluded(scene: Scene, origins, directions, max_dist,
                    ray_chunk: Optional[int] = None, active=None):
     """Any-hit visibility against the scene.
 
-    ``active``: optional (N,) bool — see :func:`scene_intersect`; inactive
-    lanes are skipped by the cull and report unoccluded."""
+    ``active``: optional (N,) bool — inactive lanes report unoccluded."""
+    n = origins.shape[0]
+    origins = jax.lax.stop_gradient(origins)
+    directions = jax.lax.stop_gradient(directions)
+    md = jnp.broadcast_to(
+        jnp.asarray(jax.lax.stop_gradient(max_dist), origins.dtype), (n,))
+    if active is not None:
+        md = jnp.where(active, md, 0.0)  # empty interval: no hit
     if scene.watertight:
-        n = origins.shape[0]
-        md = jnp.broadcast_to(jnp.asarray(max_dist, origins.dtype), (n,))
-        if active is not None:
-            md = jnp.where(active, md, 0.0)  # empty interval: no hit
         occ = intersect.occluded_watertight(
-            jax.lax.stop_gradient(origins),
-            jax.lax.stop_gradient(directions), scene.mesh, md,
-            ray_chunk=ray_chunk)
-    elif _use_pallas_mxu(scene):
-        from light_transport_tpu.ops.pallas.intersect_kernel import (
-            intersect_rays_pallas,
-        )
-        from light_transport_tpu.ops.raysort import sorted_apply
-
-        n = origins.shape[0]
-        md = jnp.broadcast_to(
-            jnp.asarray(jax.lax.stop_gradient(max_dist),
-                        origins.dtype), (n,))
-        if active is not None:
-            md = jnp.where(active, md, -jnp.inf)
-        occ = sorted_apply(
-            lambda o, d, m: intersect_rays_pallas(
-                o, d, scene.mesh, any_hit=True, max_dist=m),
-            scene.mesh,
-            jax.lax.stop_gradient(origins),
-            jax.lax.stop_gradient(directions), md,
-            inactive=None if active is None else ~active,
-        )
+            origins, directions, scene.mesh, md, ray_chunk=ray_chunk)
     elif scene.bvh is not None:
-        n = origins.shape[0]
-        md = jnp.broadcast_to(jnp.asarray(max_dist, origins.dtype), (n,))
-        if scene.treelet is not None and _platform() == "tpu":
-            from light_transport_tpu.ops.pallas.treelet_kernel import (
-                intersect_bvh_treelet_wavefront,
-                occluded_bvh_treelet,
-            )
-            from light_transport_tpu.ops.raysort import sorted_apply
-
-            if active is not None:
-                md = jnp.where(active, md, -jnp.inf)
-            if TREELET_WAVEFRONT:
-                occ = intersect_bvh_treelet_wavefront(
-                    jax.lax.stop_gradient(origins),
-                    jax.lax.stop_gradient(directions), scene.treelet,
-                    t_max=md, any_hit=True,
-                    loads_per_pass=WAVEFRONT_LOADS_PER_PASS,
-                    max_passes=WAVEFRONT_MAX_PASSES)
-            else:
-                occ = sorted_apply(
-                    lambda o, d, m: occluded_bvh_treelet(
-                        o, d, scene.treelet, m),
-                    scene.mesh,
-                    jax.lax.stop_gradient(origins),
-                    jax.lax.stop_gradient(directions), md,
-                    inactive=None if active is None else ~active,
-                )
-        else:
-            from light_transport_tpu.accel import bvh as bvh_mod
-
-            occ = _chunked_bvh(
-                lambda o, d, m: bvh_mod.occluded_bvh(o, d, scene.mesh,
-                                                     scene.bvh, m),
-                origins, directions, md,
-            )
+        occ = _chunked_bvh(
+            lambda o, d, m: bvh_mod.occluded_bvh(o, d, scene.mesh,
+                                                 scene.bvh, m),
+            origins, directions, md,
+        )
     else:
-        occ = intersect.occluded(origins, directions, scene.mesh, max_dist,
+        occ = intersect.occluded(origins, directions, scene.mesh, md,
                                  ray_chunk=ray_chunk)
     prims = getattr(scene, "analytic", None)
     if prims is not None and prims.num > 0:

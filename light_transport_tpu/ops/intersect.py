@@ -1,9 +1,10 @@
 """Batched ray-primitive intersection kernels.
 
-TPU-native replacement for the reference's scalar kernels
+Array replacement for the reference's scalar kernels
 (src/intersects.py): every test here is a branchless masked op over an
 ``(N_rays, N_tris)`` tile, so the whole ray population and triangle soup is
-processed by fused VPU code — no per-ray control flow, no candidate lists.
+processed by fused elementwise code — no per-ray control flow, no candidate
+lists.
 
 - :func:`intersect_rays` — nearest hit via masked Möller–Trumbore
   (physics contract: ``triangle_intersect``, src/intersects.py:46-104)
@@ -13,7 +14,7 @@ processed by fused VPU code — no per-ray control flow, no candidate lists.
   — parity with src/intersects.py:11-42,142-162,165-175.
 
 For big meshes, rays are processed in chunks (``ray_chunk``) so the
-``(N, T)`` intermediate stays within HBM/VMEM budgets; the BVH path in
+``(N, T)`` intermediate stays within device memory; the BVH path in
 ``accel/`` bounds T per ray instead.
 """
 
@@ -184,122 +185,6 @@ def occluded(
     return res.reshape(total)[:n]
 
 
-def _mxu_features(origins, directions):
-    """Per-ray feature rows for the MXU intersector: [d, o x d, o, 1]."""
-    oxd = lm.cross(origins, directions)
-    ones = jnp.ones(origins.shape[:-1] + (1,), origins.dtype)
-    return jnp.concatenate([directions, oxd, origins, ones], axis=-1)
-
-
-def mxu_tri_features(mesh: TriangleMesh):
-    """Per-triangle weight matrix (10, 4T) for the MXU intersector.
-
-    Möller–Trumbore's four scalars are all 3x3 determinants, i.e. trilinear
-    forms in (ray origin, ray direction, triangle vectors) — so each is a
-    dot product of a 10-wide per-ray feature with a per-triangle column:
-
-        det   = d . -(e1 x e2)
-        u_num = (o x d) . e2  +  d . -(e2 x v0)
-        v_num = (o x d) . -e1 +  d . -(v0 x e1)
-        t_num = o . (e1 x e2) + 1 . -(v0 . (e1 x e2))
-
-    and u = u_num/det, v = v_num/det, t = t_num/det.  This routes the
-    O(N*T) intersection work through the 128x128 systolic array instead of
-    the VPU.  Returns (10, 4, T) float32.
-    """
-    v0 = jnp.asarray(mesh.v0)
-    e1 = jnp.asarray(mesh.e1)
-    e2 = jnp.asarray(mesh.e2)
-    n2 = lm.cross(e1, e2)  # (T, 3)
-    k0 = lm.dot(v0, n2)  # (T,)
-    t_count = v0.shape[0]
-    w = jnp.zeros((10, 4, t_count), v0.dtype)
-    # det: d block (rows 0:3)
-    w = w.at[0:3, 0].set(-n2.T)
-    # u_num: (o x d) block rows 3:6 with e2; d block with -(e2 x v0)
-    w = w.at[3:6, 1].set(e2.T)
-    w = w.at[0:3, 1].set(-lm.cross(e2, v0).T)
-    # v_num: (o x d) with -e1; d with -(v0 x e1)
-    w = w.at[3:6, 2].set(-e1.T)
-    w = w.at[0:3, 2].set(-lm.cross(v0, e1).T)
-    # t_num: o block rows 6:9 with n2; bias row 9 with -k0
-    w = w.at[6:9, 3].set(n2.T)
-    w = w.at[9, 3].set(-k0)
-    return w
-
-
-def intersect_rays_mxu(
-    origins: jnp.ndarray,
-    directions: jnp.ndarray,
-    mesh: TriangleMesh,
-    t_min=T_EPS,
-    t_max=jnp.inf,
-    tri_features: Optional[jnp.ndarray] = None,
-    ray_chunk: int = 8192,
-    any_hit: bool = False,
-    max_dist=None,
-) -> Hit:
-    """Brute-force nearest-hit intersection with the determinant work on the
-    MXU (see :func:`mxu_tri_features`).  Competitive with (and for mid-size
-    meshes much faster than) the lockstep BVH walk, because the systolic
-    array does the O(N*T) arithmetic while the VPU only does the masked
-    compare/select pass."""
-    if tri_features is None:
-        tri_features = mxu_tri_features(mesh)
-    n = origins.shape[0]
-    dtype = origins.dtype
-    t_count = mesh.v0.shape[0]
-    t_min_b = _broadcast_t(t_min, n, dtype)
-    t_max_b = _broadcast_t(max_dist if any_hit and max_dist is not None
-                           else t_max, n, dtype)
-    w = tri_features.reshape(10, -1)  # (10, 4T)
-
-    def run(o, d, tmin, tmax):
-        feats = _mxu_features(o, d)  # (C, 10)
-        q = jnp.dot(feats, w, preferred_element_type=jnp.float32,
-                    precision=jax.lax.Precision.HIGHEST)
-        q = q.reshape(feats.shape[0], 4, t_count)
-        det, u_num, v_num, t_num = q[:, 0], q[:, 1], q[:, 2], q[:, 3]
-        ok = jnp.abs(det) > DET_EPS
-        inv = jnp.where(ok, 1.0 / jnp.where(det == 0, 1.0, det), 0.0)
-        u = u_num * inv
-        v = v_num * inv
-        t = t_num * inv
-        valid = (
-            ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-            & (t > tmin[:, None]) & (t < tmax[:, None])
-        )
-        if any_hit:
-            return jnp.any(valid, axis=-1)
-        t_masked = jnp.where(valid, t, jnp.inf)
-        tri = jnp.argmin(t_masked, axis=-1).astype(jnp.int32)
-        t_best = jnp.take_along_axis(t_masked, tri[:, None], axis=-1)[:, 0]
-        hit_ok = jnp.isfinite(t_best)
-        return Hit(t=t_best, tri=jnp.where(hit_ok, tri, -1), valid=hit_ok)
-
-    if n <= ray_chunk:
-        return run(origins, directions, t_min_b, t_max_b)
-    o_p, d_p, tn_p, tx_p, total = _pad_rays(
-        origins, directions, t_min_b, t_max_b, ray_chunk
-    )
-    out = jax.lax.map(
-        lambda args: run(*args),
-        (
-            o_p.reshape(-1, ray_chunk, 3),
-            d_p.reshape(-1, ray_chunk, 3),
-            tn_p.reshape(-1, ray_chunk),
-            tx_p.reshape(-1, ray_chunk),
-        ),
-    )
-    if any_hit:
-        return out.reshape(total)[:n]
-    return Hit(
-        t=out.t.reshape(total)[:n],
-        tri=out.tri.reshape(total)[:n],
-        valid=out.valid.reshape(total)[:n],
-    )
-
-
 def sphere_intersect(origins, directions, center, radius):
     """Batched ray-sphere test (contract: src/intersects.py:11-42).
 
@@ -354,9 +239,9 @@ def aabb_intersect(origins, directions, box_min, box_max, t_max=jnp.inf):
 # Intersection").  The reference runs it scalar-per-candidate in float64; here
 # the translate/permute/shear transform is batched over an (N, T) tile with
 # the per-ray permutation applied via take_along_axis, so the whole test is
-# branchless VPU code.  Deviation: the reference re-evaluates exactly-zero
-# edge functions in float64 (src/intersects.py:316-329); TPUs have no f64, so
-# zero edge functions are accepted as on-edge hits — watertightness (shared
+# branchless elementwise code.  Deviation: the reference re-evaluates
+# exactly-zero edge functions in float64 (src/intersects.py:316-329); this
+# program runs float32 throughout, so zero edge functions are accepted as on-edge hits — watertightness (shared
 # edges/vertices never fall through) still holds because adjacent triangles
 # evaluate the shared edge with the same rounded products, just negated.
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Per-lane static-depth stacks for lockstep deferred-branch traversal.
 
-TPU-native replacement for the reference's Python recursion stacks
+Array replacement for the reference's Python recursion stacks
 (``render.trace_ray`` src/render.py:121-153 and ``render_old``'s
 reflect/refract recursion, src/render_old.py:118-162): every lane keeps a
 fixed-capacity stack in SoA arrays, and push/pop are one-hot masked

@@ -27,9 +27,9 @@ Construction (all public-domain algorithms):
   padded-sampler construction used by production renderers).
 
 Everything is int32/uint32 bit arithmetic on full lane tensors — branchless,
-shape-static, VPU-friendly; no tables beyond two (32,) uint32 constants.
+shape-static; no tables beyond two (32,) uint32 constants.
 
-TPU-first notes: the generator "matrix-vector product" is 32 unrolled
+Notes: the generator "matrix-vector product" is 32 unrolled
 select-XORs fused by XLA into the surrounding uniform-tensor build; there is
 no per-sample host work and no dynamic shape anywhere.
 """
@@ -209,8 +209,8 @@ def lane_uniforms(seed, pixel, sample, max_depth: int, dtype=jnp.float32):
     u_aa = jnp.stack([ax, ay], axis=-1)
     # NUM_U = 7 slots per bounce out of 4 pairs: the 4th pair contributes
     # only its x (MED) — its y is a documented spare, so it is never
-    # generated (ADVICE r3: don't lean on XLA to dead-code the GF(2)
-    # matvec + scrambles behind the stack/reshape/slice chain)
+    # generated (don't lean on XLA to dead-code the GF(2) matvec +
+    # scrambles behind the stack/reshape/slice chain)
     assert _rng.NUM_U == 2 * _PAIRS_PER_BOUNCE - 1
     slots = []
     for b in range(max_depth):

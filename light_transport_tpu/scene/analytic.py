@@ -19,7 +19,7 @@ from typing import Sequence, Tuple
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from light_transport_tpu.core import struct
 
 from light_transport_tpu.core import math as lm
 

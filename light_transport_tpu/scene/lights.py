@@ -2,7 +2,7 @@
 
 The reference pre-draws ~2000 fixed sample points on the two light triangles
 and a shadow ray picks one uniformly (``generate_area_light_samples`` /
-``cast_one_shadow_ray``, src/light_samples.py:17-61).  TPU-natively the light
+``cast_one_shadow_ray``, src/light_samples.py:17-61).  Here the light
 table stores the emitting triangles themselves and each NEE shadow ray draws
 a fresh barycentric point — the same estimator (pdf = 1/total_area) without
 the frozen-point-set bias, and with two reference bugs fixed (documented):
@@ -18,10 +18,9 @@ from __future__ import annotations
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
+from light_transport_tpu.core import struct
 
 from light_transport_tpu.core import math as lm
-from light_transport_tpu.core.hostio import host_get
 from light_transport_tpu.scene.geometry import TriangleMesh
 from light_transport_tpu.scene.material import MaterialTable
 
@@ -63,7 +62,7 @@ class LightTable:
         e2 = h_e2.astype(np.float64)[idx]
         area = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1)
         mat = h_mat[idx]
-        radiance = host_get(materials.emission_rgb).astype(np.float64)[mat]
+        radiance = np.asarray(materials.emission_rgb, np.float64)[mat]
         cdf = np.cumsum(area) / area.sum()
         return LightTable(
             v0=jnp.asarray(h_v0[idx].astype(dtype)),

@@ -3,7 +3,7 @@
 The reference stores a ``Material`` jitclass pointer on every triangle
 (src/material.py:18-37, src/primitives.py:91); BSDF dispatch branches on its
 ``is_diffuse`` / ``is_mirror`` / ``transmission`` flags
-(src/path_tracing.py:68,103,108).  TPU-natively, materials are rows of a small
+(src/path_tracing.py:68,103,108).  Here materials are rows of a small
 replicated table and each triangle carries an int32 ``mat_id``; dispatch is a
 branchless select on an integer BSDF code.
 """
@@ -16,7 +16,7 @@ from typing import Sequence
 import numpy as np
 import jax.numpy as jnp
 
-from flax import struct
+from light_transport_tpu.core import struct
 
 # BSDF dispatch codes — ordered to match the reference's if/elif chain
 # (src/path_tracing.py:68-145): is_diffuse wins over is_mirror which wins

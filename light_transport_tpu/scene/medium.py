@@ -11,7 +11,7 @@ Layer layout (z increases downward, photons launched at z=0):
 
     z0=0 ── layer 0 ── z1 ── layer 1 ── ... ── zL (or infinity)
 
-Arrays are tiny and replicate to every chip.
+Arrays are tiny and replicate to every device.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from __future__ import annotations
 from typing import Sequence
 
 import numpy as np
-from flax import struct
+from light_transport_tpu.core import struct
 
 from light_transport_tpu.core.config import MediumConfig
 

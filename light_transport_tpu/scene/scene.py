@@ -15,29 +15,11 @@ from typing import Optional
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from light_transport_tpu.core import struct
 
 from light_transport_tpu.scene.geometry import TriangleMesh
 from light_transport_tpu.scene.lights import LightTable
 from light_transport_tpu.scene.material import MaterialTable
-
-
-# with_bvh(treelet="auto") attaches treelet slabs past this triangle
-# count — the MXU brute-force/BVH crossover (dispatch.MXU_MAX_TRIS; kept
-# literal here to avoid a scene<->dispatch import cycle, guarded by a
-# cross-check in tests/test_treelet.py).
-TREELET_AUTO_MIN_TRIS = 1_048_576
-
-
-def _auto_treelet(scene: "Scene") -> bool:
-    """True when dispatch would actually route this scene through the
-    treelet kernel: TPU backend, big mesh, format cap, not watertight."""
-    import jax
-
-    n = scene.mesh.v0.shape[0]
-    return (not scene.watertight
-            and TREELET_AUTO_MIN_TRIS < n < (1 << 24)
-            and jax.default_backend() == "tpu")
 
 
 @struct.dataclass
@@ -47,11 +29,6 @@ class Scene:
     lights: LightTable
     camera: np.ndarray  # (3,) pinhole position
     bvh: Optional["BVH"] = None  # set by with_bvh(); None = brute force
-    # optional treelet slabs for the Pallas kernel-resident traversal
-    # (ops/pallas/treelet_kernel.py) — set by with_treelet(); on TPU,
-    # dispatch routes big-mesh BVH queries through it (bit-identical to
-    # the roped walk, measured 1.2-8.5x faster at 4.2M tris, PERF.md)
-    treelet: Optional["TreeletTables"] = None
     # optional analytic sphere/plane primitives (reference Sphere/Plane,
     # src/primitives.py:41-66, made renderable — scene/analytic.py)
     analytic: Optional["AnalyticPrims"] = None
@@ -66,7 +43,7 @@ class Scene:
     # because the robust-MT default + inflated BVH bounds already covers
     # crack-freeness for the bundled scenes at better throughput
     # (README §Deviations 9); set it for crack-sensitive geometry.
-    watertight: bool = struct.field(pytree_node=False, default=False)
+    watertight: bool = struct.field(static=True, default=False)
 
     @staticmethod
     def build(mesh: TriangleMesh, materials: MaterialTable, camera,
@@ -79,24 +56,13 @@ class Scene:
             analytic=analytic,
         )
 
-    def with_bvh(self, max_leaf: int = 4, treelet="auto") -> "Scene":
+    def with_bvh(self, max_leaf: int = 4) -> "Scene":
         """Attach a BVH (host build; reorders the mesh and rebuilds the
-        light table over the reordered triangle indices).
-
-        ``treelet``: whether to also attach treelet slabs for the Pallas
-        kernel-resident traversal (the measured-best TPU route for meshes
-        past the MXU brute-force crossover — PERF.md §treelet-wavefront).
-        ``"auto"`` (default) attaches them exactly when dispatch would use
-        them: default backend is TPU, the mesh is past the crossover
-        (>2^20 tris), under the table format's 2^24-tri cap, and the scene
-        is not in watertight mode.  ``True`` forces the build (any
-        backend — used by CPU-mesh tests), ``False`` opts out (saves the
-        ~320 B/node slab HBM; a 4.2M-tri mesh carries ~0.85 GB of slabs).
-        """
+        light table over the reordered triangle indices)."""
         from light_transport_tpu.accel import bvh as bvh_mod
 
         bvh, ordered = bvh_mod.build(self.mesh, max_leaf=max_leaf)
-        scene = Scene(
+        return Scene(
             mesh=ordered,
             materials=self.materials,
             # keep the scene's dtype (a float64 scene must not silently
@@ -109,31 +75,6 @@ class Scene:
             point_lights=self.point_lights,
             watertight=self.watertight,
         )
-        if treelet is True or (treelet == "auto"
-                               and _auto_treelet(scene)):
-            scene = scene.with_treelet()
-        return scene
-
-    def with_treelet(self, T: int = 512) -> "Scene":
-        """Attach treelet slabs for the Pallas kernel-resident traversal
-        (requires a BVH; ~320 B/node of extra HBM).  On TPU, dispatch then
-        routes every BVH-path query through the treelet kernel."""
-        import dataclasses
-
-        from light_transport_tpu.ops.pallas.treelet_kernel import (
-            build_treelet_tables,
-        )
-
-        if self.bvh is None:
-            raise ValueError("with_treelet() requires with_bvh() first")
-        if self.mesh.v0.shape[0] > (1 << 24):
-            # leaf prim indices (first + k) are packed as three 8-bit bf16
-            # digits; >= 2^24 would silently drop high bits (ADVICE r4)
-            raise ValueError(
-                f"treelet tables support up to 2^24 triangles, got "
-                f"{self.mesh.v0.shape[0]:,}")
-        return dataclasses.replace(
-            self, treelet=build_treelet_tables(self.bvh, T=T))
 
     def with_point_lights(self, positions, intensities, **phong) -> "Scene":
         """Attach point (delta) light sources (reference GUI 'Point'
@@ -141,17 +82,13 @@ class Scene:
         (P, 3)-broadcastable; ``**phong`` forwards the optional Whitted
         light colors (ambient/diffuse/specular) to
         :class:`~light_transport_tpu.scene.lights.PointLightTable`."""
-        import dataclasses
-
         from light_transport_tpu.scene.lights import PointLightTable
 
-        return dataclasses.replace(
-            self, point_lights=PointLightTable.build(
+        return self.replace(
+            point_lights=PointLightTable.build(
                 positions, intensities, dtype=self.camera.dtype, **phong))
 
     def with_watertight(self, on: bool = True) -> "Scene":
         """Select the watertight triangle test for every scene query (the
         reference flagship's robustness path); see the field docstring."""
-        import dataclasses
-
-        return dataclasses.replace(self, watertight=on)
+        return self.replace(watertight=on)

@@ -11,8 +11,8 @@ Event counters (photons launched, scatter steps) are EXACT at any scale via
 a two-word float32 representation: ``count = hi * COUNTER_BASE + lo`` with
 both words integer-valued f32.  A single f32 loses integer exactness above
 2^24 (~1.7e7) — a 1e8-photon run would drop launches at the ppm level (the
-round-1 full-scale artifact recorded 99,999,952 of 1e8).  TPUs have no i64,
-so the counter is carried as (2,) f32 with an explicit carry; capacity is
+round-1 full-scale artifact recorded 99,999,952 of 1e8).  JAX runs with
+64-bit types disabled by default, so the counter is carried as (2,) f32 with an explicit carry; capacity is
 2^24 * 2^16 = 2^40 (~1.1e12 events), and psum over up to ~256 devices keeps
 both words exact.
 """
@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from light_transport_tpu.core import struct
 
 from light_transport_tpu.core.config import PhotonRunConfig
 

@@ -10,6 +10,7 @@ ray-tracing.ipynb cells 12/14), and an optional ``jax.profiler`` trace hook.
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import time
 from typing import Callable, Optional
 
@@ -59,6 +60,18 @@ def compile_and_steady(fn: Callable, *args, repeats: int = 3):
         _, t = timed(fn, *args)
         best = min(best, t)
     return t_compile, best
+
+
+def gpu_name_and_power_limit() -> str:
+    """``name, power.limit`` of each visible NVIDIA card, one line per card,
+    exactly as ``nvidia-smi`` prints them.  A card set below its maximum
+    power runs slower under load, so every recorded time carries this
+    line.  Raises when ``nvidia-smi`` is missing or fails."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip()
 
 
 @contextlib.contextmanager

@@ -2,7 +2,7 @@
 """A/B the tail-compacted camera tracer on the fix1-scale workload
 (300x300, depth 8, 50 spp, RR from bounce 5 — src/path_tracing_fix1.py
 config, BASELINE.md row 8).  Prints steady seconds for the full-width and
-compacted renders plus per-bounce occupancy (VERDICT r3 item 3)."""
+compacted renders plus per-bounce occupancy."""
 
 import argparse
 import pathlib
@@ -26,7 +26,6 @@ def main():
     import jax
     import numpy as np
 
-    from light_transport_tpu.core.hostio import host_get
     from light_transport_tpu.integrators import path_tracer as pt
     from light_transport_tpu.scene.cornell import cornell_box_scene
 
@@ -36,7 +35,6 @@ def main():
     key = jax.random.key(1)
     print(f"devices: {jax.devices()}", file=sys.stderr)
     import jax.numpy as jnp
-    float(host_get(jnp.arange(1024.0).sum()))  # backend warmup
 
     o, d, u = jax.jit(lambda k: pt._camera_lanes(scene, cfg, k))(key)
     jax.block_until_ready(o)
@@ -46,7 +44,7 @@ def main():
     def occupancy():
         _, rec = jax.jit(
             lambda o, d, u: pt.trace_paths(scene, cfg, o, d, u))(o, d, u)
-        return np.asarray(host_get(rec.alive.mean(axis=0)))
+        return np.asarray(rec.alive.mean(axis=0))
 
     def timed(fn, label):
         r = fn(o, d, u)
@@ -55,7 +53,7 @@ def main():
         for _ in range(args.reps):
             t0 = time.perf_counter()
             r = fn(o, d, u)
-            s = float(host_get(jnp.asarray(r).sum()))  # forcing fetch
+            s = float(jnp.asarray(r).sum())  # forcing fetch
             best = min(best, time.perf_counter() - t0)
         print(f"{label}: steady {best:.3f}s  (checksum {s:.4f})")
         return best, s

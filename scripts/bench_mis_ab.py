@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""A/B emission_mode='nee' vs 'mis' (VERDICT r3 item 5): per-pixel
+"""A/B emission_mode='nee' vs 'mis': per-pixel
 display-clipped variance at equal spp on three Cornell variants —
 (a) stock, (b) small-bright light (5x smaller per side, 25x emission:
 the regime where NEE is already near-optimal and MIS must match it, not

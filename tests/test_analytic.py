@@ -1,4 +1,4 @@
-"""Renderable analytic sphere/plane primitives (VERDICT.md missing #1).
+"""Renderable analytic sphere/plane primitives.
 
 The reference defines Sphere/Plane jitclasses with scalar kernels
 (src/primitives.py:41-66, src/intersects.py:11-42,142-162) but never renders

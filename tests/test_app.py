@@ -1,4 +1,4 @@
-"""Streamlit GUI smoke test (VERDICT.md missing #2).
+"""Streamlit GUI smoke test.
 
 streamlit isn't installed in this image, so the GUI is driven through a
 minimal stub that answers every widget call with its smallest/default value

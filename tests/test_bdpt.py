@@ -202,7 +202,7 @@ def test_mis_partition_of_unity():
 
 
 def test_mis_partition_of_unity_s2():
-    """Partition of unity at an s>=2 junction (VERDICT r2 item 8): for the
+    """Partition of unity at an s>=2 junction: for the
     3-segment path (camera -> v1 -> m -> light point L) there are exactly
     four sampled strategies with light tracing on:
 
@@ -457,7 +457,7 @@ def test_bdpt_specular_chain_parity_glass_scene():
     the same transport paths, so the image means must agree within MC error
     (3 sigma; sigma from the PT per-sample spread + a multi-seed BDPT
     spread).  A wrong Fresnel split or MIS weight on specular chains shifts
-    the mean well outside this band (VERDICT.md weak #8)."""
+    the mean well outside this band."""
     from light_transport_tpu.models.presets import glass_scene
 
     scene, cfg = glass_scene(width=20, height=20, spp=24, max_depth=5)
@@ -481,7 +481,7 @@ def test_bdpt_specular_chain_parity_glass_scene():
     bound = 3.0 * np.sqrt(se_pt**2 + se_bd**2) + 1e-3
     assert diff < bound, (img_pt.mean(), np.mean(bd), diff, bound)
 
-    # per-pixel bound (VERDICT r2 item 8: mean-level-only parity would let
+    # per-pixel bound (mean-level-only parity would let
     # spatially compensating MIS errors — e.g. swapped strategy weights —
     # pass).  Per-pixel luminance z-scores against the combined per-pixel
     # MC error; a localized systematic shift inflates the tail.
@@ -500,7 +500,7 @@ def test_bdpt_specular_chain_parity_glass_scene():
 def test_bdpt_absorbing_media_parity_glass_scene():
     """BDPT vs PT on the whisky-glass scene with a strongly ABSORBING
     liquid (sigma_a > 0, sigma_s = 0): BDPT's subpath walks now carry the
-    interior medium and Beer-Lambert their segments (VERDICT r3 item 6),
+    interior medium and Beer-Lambert their segments,
     so both estimators target the same transport — image means within
     3 sigma, and the absorption must actually bite (darker than the
     clear-liquid render), proving the attenuation path executed."""

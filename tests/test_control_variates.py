@@ -123,3 +123,54 @@ def test_cv_pixel_dive():
     v_plain = np.asarray(dive.samples).var(axis=1).mean()
     v_cv = np.asarray(dive.corrected).var(axis=1).mean()
     assert v_cv <= v_plain * 1.2, (v_plain, v_cv)
+
+
+def _cv_correct_f64(samples, control):
+    """Plain float64 numpy form of the per-pixel CV solve."""
+    out = []
+    for s, c in zip(np.asarray(samples, np.float64),
+                    np.asarray(control, np.float64)):
+        x = np.concatenate([s, c], axis=1)
+        x = x - x.mean(axis=0, keepdims=True)
+        cov = x.T @ x
+        d = s.shape[1]
+        alpha = -(cov[:d, d:] @ np.linalg.pinv(cov[d:, d:]))
+        out.append(s + (alpha @ c.T).T)
+    return np.stack(out)
+
+
+def test_cv_correct_matches_float64_solve():
+    """Correlated controls (a near-collinear pair) against the float64
+    solve; every matrix product in the traced solve is pinned to HIGHEST
+    precision, so a GPU cannot run it as TF32."""
+    rng = np.random.default_rng(4)
+    p, s = 16, 64
+    base = rng.normal(size=(p, s, 2))
+    control = np.concatenate(
+        [base, base[..., :1] + 0.05 * rng.normal(size=(p, s, 1))], axis=-1)
+    beta = np.array([[1.0, -2.0, 0.5], [0.3, 1.0, 1.0], [2.0, 0.0, -1.0]])
+    samples = 3.0 + control @ beta.T + 0.1 * rng.normal(size=(p, s, 3))
+    got, singular = cv_correct(jnp.asarray(samples, jnp.float32),
+                               jnp.asarray(control, jnp.float32))
+    ref = _cv_correct_f64(samples, control)
+    assert not bool(singular.any())
+    np.testing.assert_allclose(np.asarray(got), ref, atol=2e-3)
+    jaxpr = jax.make_jaxpr(cv_correct)(jnp.asarray(samples, jnp.float32),
+                                       jnp.asarray(control, jnp.float32))
+    dots = [e for e in _all_eqns(jaxpr.jaxpr)
+            if e.primitive.name == "dot_general"]
+    assert len(dots) >= 3
+    for e in dots:
+        assert e.params["precision"] == (jax.lax.Precision.HIGHEST,) * 2, e
+
+
+def _all_eqns(jaxpr):
+    """Every equation of ``jaxpr`` and of the jaxprs nested in its params
+    (vmap, pjit, custom rules)."""
+    for e in jaxpr.eqns:
+        yield e
+        for v in e.params.values():
+            for sub in (v if isinstance(v, (tuple, list)) else (v,)):
+                sub = getattr(sub, "jaxpr", sub)
+                if hasattr(sub, "eqns"):
+                    yield from _all_eqns(sub)

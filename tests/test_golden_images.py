@@ -1,4 +1,4 @@
-"""Golden-image regression tests (VERDICT.md weak #10).
+"""Golden-image regression tests.
 
 Two layers of protection against silent estimator regressions that the
 statistical parity tests are too loose to see:

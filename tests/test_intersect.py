@@ -196,15 +196,15 @@ def test_watertight_ray_chunking():
 
 def test_watertight_shared_edges_unfriendly_coordinates():
     """Shared-edge watertightness over a float32-hostile coordinate range
-    (VERDICT.md missing #3): the fan is scaled by 1/3 (vertices land off the
+   : the fan is scaled by 1/3 (vertices land off the
     binary grid) and translated to a large offset where one ulp is ~2^-11 of
     the geometry scale, so every edge-function product rounds.  The argument
     in ops/intersect.py (adjacent triangles see the same rounded products,
     negated) must hold here too: no edge or vertex ray may fall through.
 
     The reference instead re-evaluates exactly-zero edge functions in
-    float64 (src/intersects.py:316-329) — unavailable on TPU; this test is
-    the evidence the f32-only policy is safe.
+    float64 (src/intersects.py:316-329) — this program runs float32
+    throughout; this test is the evidence the f32-only policy is safe.
     """
     from light_transport_tpu.scene.geometry import TriangleMesh
 

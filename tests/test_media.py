@@ -163,7 +163,7 @@ def _direct_at_floor(scene, shadow_mode, n=256, seed=2):
 
 
 def test_shadow_transmittance_analytic():
-    """Media-aware NEE (VERDICT r2 item 4): colored-glass shadows carry
+    """Media-aware NEE: colored-glass shadows carry
     straight-line Beer-Lambert attenuation.  With identical seeds the
     absorbing-slab render divided by the clear-slab render must equal
     exp(-sigma_t * 0.5) per channel (shadow rays are near-vertical: the

@@ -3,7 +3,7 @@
 A deliberately naive per-ray numpy implementation of the same estimator
 (NEE + cosine BSDF sampling + first-hit emission) written without any
 shared code — the 'small trusted CPU oracle' SURVEY.md §4 calls for.  The
-vectorized TPU integrator must agree with it within Monte Carlo error on a
+vectorized integrator must agree with it within Monte Carlo error on a
 diffuse scene; any systematic estimator drift (pdf factor, geometry term,
 throughput update, emission rule) shows up as a mean shift.
 """

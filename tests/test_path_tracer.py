@@ -392,38 +392,9 @@ def test_emission_color_consistent_across_estimators():
                                rtol=1e-3)
 
 
-def test_depth0_peel_is_estimator_noop(small_scene, monkeypatch):
-    """>MXU_MAX_TRIS scenes peel bounce 0 out of the scan so primaries can
-    carry the static coherent=True dispatch hint.  The peel must not change
-    the estimator: same uniforms -> same radiance and records (off-TPU both
-    branches run the same intersector, isolating the restructure itself)."""
-    from light_transport_tpu.integrators import path_tracer as pt
-    from light_transport_tpu.ops import dispatch
-
-    scene, cfg = small_scene
-    n = 96
-    key = jax.random.key(11)
-    u = rng.path_uniforms(key, n, cfg.max_depth)
-    u_aa = jax.random.uniform(jax.random.fold_in(key, 1), (n, 2))
-    o, d = camera_rays(scene, cfg, jnp.tile(
-        u_aa, (cfg.height * cfg.width * cfg.spp // n, 1)))
-    o, d = o[:n], d[:n]
-
-    rad_scan, rec_scan = trace_paths(scene, cfg, o, d, u)
-    monkeypatch.setattr(dispatch, "MXU_MAX_TRIS", 1)  # force the peel
-    rad_peel, rec_peel = trace_paths(scene, cfg, o, d, u)
-    np.testing.assert_allclose(np.asarray(rad_peel), np.asarray(rad_scan),
-                               rtol=0, atol=1e-6)
-    # scan vs unrolled bounce reassociates float ops: records match to a
-    # few ulps, not bitwise
-    for a, b in zip(rec_scan, rec_peel):
-        np.testing.assert_allclose(np.asarray(b), np.asarray(a),
-                                   rtol=0, atol=1e-5)
-
-
 def test_compact_tail_matches_full_width():
     """RenderConfig.compact_tail: the host-driven multi-level tail
-    compaction (VERDICT r3 item 3) reproduces the full-width tracer's
+    compaction reproduces the full-width tracer's
     estimate exactly up to compilation-partition rounding: per-lane math
     is elementwise, intersection/NEE are lane-order-independent, and dead
     lanes' radiance is final when flushed — but the segmented jits fuse
@@ -457,8 +428,8 @@ def test_compact_tail_matches_full_width():
 
 
 def test_emission_mode_mis_unbiased_vs_nee():
-    """emission_mode='mis' (power-heuristic NEE<->BSDF combination,
-    VERDICT r3 item 5) estimates the same transport as 'nee': same scene,
+    """emission_mode='mis' (power-heuristic NEE<->BSDF combination)
+    estimates the same transport as 'nee': same scene,
     same spp, image means agree within 3 sigma of the pooled per-pixel
     MC error; and on a bright area light the MIS image's per-pixel
     variance is no worse (the power heuristic only reweights, never adds

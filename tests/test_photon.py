@@ -8,7 +8,6 @@ image-MAE estimator cross-check to chi-squared/3-sigma physics parity.
 
 import jax
 import numpy as np
-import pytest
 
 from light_transport_tpu.api import simulate
 from light_transport_tpu.core.config import MediumConfig, PhotonRunConfig
@@ -160,10 +159,10 @@ def test_run_fixed_steps_counts():
 
 
 def test_drain_compaction_equivalent():
-    """Drain-tail compaction (simulate_photons compact_drain, VERDICT r2
-    item 6): forcing compaction through several power-of-two shrinks must
-    preserve the exact launch count, energy closure, and the van de Hulst
-    golden R_d; a run whose live set never falls below half occupancy is
+    """Drain-tail compaction (simulate_photons compact_drain): forcing
+    compaction through several power-of-two shrinks must preserve the
+    exact launch count, energy closure, and the van de Hulst golden R_d;
+    a run whose live set never falls below half occupancy is
     bitwise unchanged."""
     import jax
     import numpy as np
@@ -186,54 +185,6 @@ def test_drain_compaction_equivalent():
     assert abs(a.total_reflectance() - b.total_reflectance()) < 5e-3
 
 
-def test_mxu_histogram_accumulation_equivalent():
-    """In-kernel MXU histogram accumulation (rz_mm/det_mm) must reproduce
-    the stream+scatter fold: same RNG draw order, same once-per-window
-    deposit semantics, so grids agree to bf16-hi/lo-split precision
-    (~2^-16 relative) and the exact counters agree bitwise.  Runs the
-    threefry-fed interpret kernel on CPU (the TPU Mosaic path is covered
-    by the full-scale artifact run and parity chi2 in bench.py)."""
-    import jax.numpy as jnp
-
-    from light_transport_tpu.ops.pallas.photon_kernel import (
-        LANES, ROWS, PallasPhotonEngine,
-    )
-    from light_transport_tpu.tally.tallies import PhotonTallies, counter_value
-
-    medium = LayeredMedium.build(
-        [MediumConfig(mu_a=1.0, mu_s=9.0, g=0.7, n=1.37)], n_above=1.0)
-    cfg = PhotonRunConfig(n_photons=8192, nr=48, nz=40, dr=0.02, dz=0.02,
-                          tally_stride=8, detector_nx=24,
-                          detector_extent=0.5,
-                          vol_nx=8, vol_ny=8, vol_nz=8, vol_stride=16)
-
-    def run_engine(rz_mm, det_mm):
-        eng = PallasPhotonEngine(medium, cfg, ROWS * LANES,
-                                 bench_mode=False, k_steps=32,
-                                 hw_prng=False, rz_mm=rz_mm, det_mm=det_mm)
-        assert eng.rz_mm == rz_mm and eng.det_mm == det_mm
-        state = eng.zero_state()
-        tallies = PhotonTallies.zeros(cfg)
-        quota = jnp.full((1, 1), float(cfg.n_photons), jnp.float32)
-        for b in range(3):
-            state, outs, counters = eng.run_block(state, 123 + b * 65537,
-                                                  quota)
-            tallies = eng.accumulate(tallies, outs, counters)
-            quota = counters[:, 3:4]
-        return tallies
-
-    t0 = run_engine(False, False)
-    t1 = run_engine(True, True)
-    for name in ("absorb_rz", "detector_xy", "refl_r", "trans_r",
-                 "absorb_xyz"):
-        a = np.asarray(getattr(t0, name), np.float64)
-        b = np.asarray(getattr(t1, name), np.float64)
-        assert np.abs(a - b).max() <= 2e-4 * max(a.max(), 1e-12), name
-    for c in ("launched", "steps"):
-        assert counter_value(getattr(t0, c)) == counter_value(
-            getattr(t1, c)), c
-
-
 def test_max_supersteps_is_exact():
     """The superstep budget is a hard cap (advisor r3): rounds past it are
     masked no-ops, so a non-scattering, non-absorbing population (every
@@ -253,132 +204,3 @@ def test_max_supersteps_is_exact():
     t = simulate_photons(m, cfg, jax.random.key(0), lanes=512,
                          max_supersteps=21)  # not a multiple of any round
     assert t.n_steps == 512 * 21, t.n_steps
-
-
-def test_pallas_engine_rounds_k_steps_to_strides():
-    """advisor r3: the full_scale preset (vol_stride=64) crashed the
-    engine's `k_steps % vol_stride == 0` assert at the default K_STEPS=32;
-    the block length now rounds up to the stride lcm instead."""
-    from light_transport_tpu.models.presets import full_scale
-    from light_transport_tpu.ops.pallas.photon_kernel import (
-        LANES, ROWS, K_STEPS, PallasPhotonEngine,
-    )
-
-    medium, cfg = full_scale()
-    eng = PallasPhotonEngine(medium, cfg, ROWS * LANES, bench_mode=False,
-                             hw_prng=False)  # default k_steps
-    assert eng.k_steps == 64, eng.k_steps  # lcm(32, 64) rounded up from 32
-    assert eng.k_steps % eng.stride == 0
-    assert eng.k_steps % eng.vol_stride == 0
-    # explicit compatible k_steps passes through untouched
-    eng2 = PallasPhotonEngine(medium, cfg, ROWS * LANES, bench_mode=False,
-                              k_steps=128, hw_prng=False)
-    assert eng2.k_steps == 128
-
-
-def test_respawn_windows_exact_and_unbiased():
-    """cfg.respawn_windows=1 (per-window quota respawn in the Pallas
-    windowed engine): the launch quota stays exact, energy closes, and
-    every tally agrees statistically with the block-start-respawn engine
-    (same physics, different lane scheduling) while occupancy rises.
-    Runs the threefry interpret kernel on CPU."""
-    import dataclasses
-
-    from light_transport_tpu.ops.pallas.photon_kernel import (
-        LANES, ROWS, simulate_pallas,
-    )
-
-    medium = LayeredMedium.build(
-        [MediumConfig(mu_a=1.0, mu_s=9.0, g=0.7, n=1.37)], n_above=1.0)
-    # quota-rich regime (many blocks before the drain) so the occupancy
-    # delta of mid-block respawn is visible; k=32 with stride 4 gives 8
-    # respawn opportunities per block
-    base = PhotonRunConfig(n_photons=400_000, nr=32, nz=32, dr=0.03,
-                           dz=0.03,
-                           detector_nx=16, detector_extent=0.5,
-                           vol_nx=8, vol_ny=8, vol_nz=8,
-                           vol_dx=0.12, vol_dy=0.12, vol_dz=0.12,
-                           tally_stride=4, vol_stride=8)
-    res = {}
-    for rw in (0, 1):
-        cfg = dataclasses.replace(base, respawn_windows=rw)
-        timings = {}
-        tl = simulate_pallas(medium, cfg, seed=9, lanes=ROWS * LANES,
-                             k_steps=32, timings=timings)
-        assert tl.n_launched == cfg.n_photons, (rw, tl.n_launched)
-        assert abs(tl.energy_total() - 1.0) < 5e-3, (rw, tl.energy_total())
-        res[rw] = (tl, timings)
-    t0, t1 = res[0][0], res[1][0]
-    for name in ("total_reflectance", "total_transmittance",
-                 "total_absorption"):
-        a, b = getattr(t0, name)(), getattr(t1, name)()
-        se = np.sqrt(max(a, 1e-4) / base.n_photons) * 3 + 2e-3
-        assert abs(a - b) < 3 * se, (name, a, b)
-    # detector/volume totals close against each engine's own exits/absorbed
-    det0 = float(np.asarray(t0.detector_xy, np.float64).sum())
-    det1 = float(np.asarray(t1.detector_xy, np.float64).sum())
-    assert abs(det1 - det0) / max(det0, 1e-9) < 0.05
-    vol1 = float(np.asarray(t1.absorb_xyz, np.float64).sum())
-    assert abs(vol1 / float(t1.absorbed) - 1) < 0.05
-    # the point of the feature: occupancy must actually improve
-    assert (res[1][1]["steady_occupancy"]
-            > res[0][1]["steady_occupancy"] + 0.02), (
-        res[0][1]["steady_occupancy"], res[1][1]["steady_occupancy"])
-
-
-def test_interleaved_rz_flush_equivalent():
-    """interleave_flush=True (r5: window wi-1's rz records flushed between
-    window wi's step chunks, drained across tiles by the last program):
-    physics, RNG order, and every record are identical to the serial
-    flush — tallies must match to f32 re-association (the per-group adds
-    into the shared accumulator re-order the sums), with launch counters
-    and non-rz grids BITWISE equal.  Threefry interpret kernel on CPU."""
-    from light_transport_tpu.ops.pallas.photon_kernel import (
-        LANES, ROWS, simulate_pallas,
-    )
-
-    medium = LayeredMedium.build(
-        [MediumConfig(mu_a=1.0, mu_s=9.0, g=0.7, n=1.37)], n_above=1.0)
-    cfg = PhotonRunConfig(n_photons=60_000, nr=64, nz=64, dr=0.01, dz=0.01,
-                          detector_nx=32, detector_extent=0.16,
-                          vol_nx=16, vol_ny=16, vol_nz=16,
-                          vol_dx=0.04, vol_dy=0.04, vol_dz=0.04,
-                          tally_stride=8, vol_stride=16, respawn_windows=1)
-    # 2 tiles so the staging pipeline crosses a grid-program boundary;
-    # k=32/stride=8 gives 4 windows (3 in-loop flushes + the tail drain)
-    a = simulate_pallas(medium, cfg, seed=5, lanes=ROWS * LANES * 2,
-                        k_steps=32)
-    b = simulate_pallas(medium, cfg, seed=5, lanes=ROWS * LANES * 2,
-                        k_steps=32, interleave_flush=True)
-    assert a.n_launched == b.n_launched == cfg.n_photons
-    ra = np.asarray(a.absorb_rz, np.float64)
-    rb = np.asarray(b.absorb_rz, np.float64)
-    assert abs(ra.sum() - rb.sum()) / ra.sum() < 1e-6
-    assert np.abs(ra - rb).max() / ra.max() < 1e-5
-    np.testing.assert_array_equal(np.asarray(a.absorb_xyz),
-                                  np.asarray(b.absorb_xyz))
-    np.testing.assert_array_equal(np.asarray(a.detector_xy),
-                                  np.asarray(b.detector_xy))
-    np.testing.assert_array_equal(np.asarray(a.refl_r),
-                                  np.asarray(b.refl_r))
-    np.testing.assert_array_equal(np.asarray(a.trans_r),
-                                  np.asarray(b.trans_r))
-    assert float(a.total_reflectance()) == float(b.total_reflectance())
-
-
-def test_interleave_flush_rejects_bad_config():
-    import pytest as _pytest
-
-    from light_transport_tpu.ops.pallas.photon_kernel import (
-        PallasPhotonEngine,
-    )
-
-    medium = LayeredMedium.build(
-        [MediumConfig(mu_a=1.0, mu_s=9.0, g=0.0, n=1.0)])
-    # stride 1 => no windowed mode => interleave must refuse, not silently
-    # fall back (the caller asked for a specific measured schedule)
-    cfg = PhotonRunConfig(n_photons=1000, nr=16, nz=16, dr=0.1, dz=0.1,
-                          tally_stride=1)
-    with _pytest.raises(ValueError, match="interleave_flush"):
-        PallasPhotonEngine(medium, cfg, lanes=8192, bench_mode=False,
-                           interleave_flush=True)

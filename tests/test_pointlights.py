@@ -184,7 +184,7 @@ def test_point_light_preset_renders():
 def test_with_bvh_preserves_point_lights():
     scene = _floor_scene()
     assert scene.point_lights is not None
-    s2 = scene.with_bvh(treelet=False)
+    s2 = scene.with_bvh()
     assert s2.point_lights is not None
     np.testing.assert_array_equal(np.asarray(s2.point_lights.position),
                                   np.asarray(scene.point_lights.position))

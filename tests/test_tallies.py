@@ -2,7 +2,7 @@
 
 The round-1 f32 counters rounded above 2^24 events (the full-scale artifact
 recorded 99,999,952 of 1e8 launches); the two-word counters must be exact at
-any scale (VERDICT.md weak #5), and the cartesian volume (BASELINE config 5)
+any scale, and the cartesian volume (BASELINE config 5)
 must close energy with the exact scalar accumulator and be shard-invariant.
 """
 
@@ -92,7 +92,7 @@ def test_volume_tally_closes_energy():
 @pytest.mark.slow
 def test_volume_tally_shard_invariant():
     """Same config on 2 vs 8 shards: psum'd volumes agree statistically and
-    energy closes on both (VERDICT item 2's 'sharded validation')."""
+    energy closes on both."""
     from light_transport_tpu.parallel.mesh import make_mesh, simulate_sharded
 
     m = LayeredMedium.build([MediumConfig(mu_a=2.0, mu_s=8.0, g=0.5, n=1.0)])

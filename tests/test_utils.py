@@ -184,59 +184,100 @@ def test_accumulate_counters_exact_many_batches():
     assert total.n_launched == 400 * 60_000
 
 
-def test_pallas_checkpoint_kill_and_resume(tmp_path):
-    """Chunk-granular checkpoint/resume of the Pallas quota engine
-    (VERDICT r3 item 4): a run killed after N chunks and re-invoked with
-    the same arguments must reproduce the uninterrupted run's exact
-    launched/steps counters and identical tallies (per-block RNG seeds
-    derive from the absolute block index, so the resumed stream replays
-    bit-for-bit; runs on the CPU mesh via the threefry interpret kernel)."""
-    import dataclasses
+def test_checkpoint_kill_and_resume(tmp_path, monkeypatch):
+    """A resumable run killed after two of four batches resumes from its
+    checkpoint and ends bit-identical to an uninterrupted run."""
+    import light_transport_tpu.transport.photon as photon
 
-    import numpy as np
+    cfg = PhotonRunConfig(n_photons=4_000, nr=8, nz=8)
+    ref = simulate_resumable(medium(), cfg, seed=3,
+                             checkpoint_path=str(tmp_path / "ref"),
+                             n_batches=4, lanes=512)
+    real = photon.simulate_photons
+    done = []
 
-    from light_transport_tpu.core.config import (
-        MediumConfig,
-        PhotonRunConfig,
+    def dies_after_two(*a, **k):
+        if len(done) == 2:
+            raise KeyboardInterrupt("killed")
+        done.append(1)
+        return real(*a, **k)
+
+    ckpt = str(tmp_path / "run")
+    monkeypatch.setattr(photon, "simulate_photons", dies_after_two)
+    with pytest.raises(KeyboardInterrupt):
+        simulate_resumable(medium(), cfg, seed=3, checkpoint_path=ckpt,
+                           n_batches=4, lanes=512)
+    assert load_tallies(ckpt)[2] == 2
+    monkeypatch.setattr(photon, "simulate_photons", real)
+    out = simulate_resumable(medium(), cfg, seed=3, checkpoint_path=ckpt,
+                             n_batches=4, lanes=512)
+    assert out.n_launched == ref.n_launched == 4_000
+    for f in dataclasses.fields(out):
+        np.testing.assert_array_equal(np.asarray(getattr(out, f.name)),
+                                      np.asarray(getattr(ref, f.name)))
+
+
+_CACHE_PROBE = (
+    "import jax; from light_transport_tpu.core.cache import "
+    "enable_compile_cache; p = enable_compile_cache(); "
+    "print(p); print(jax.config.jax_compilation_cache_dir)")
+
+
+def _cache_probe(env_dir):
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items()
+           if k != "JAX_COMPILATION_CACHE_DIR"}
+    env["PYTHONPATH"] = root
+    if env_dir is not None:
+        env["JAX_COMPILATION_CACHE_DIR"] = env_dir
+    out = subprocess.run([sys.executable, "-c", _CACHE_PROBE], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    return out.stdout.split(), root
+
+
+@pytest.mark.parametrize("from_env", [True, False])
+def test_compile_cache_placement(tmp_path, from_env):
+    """JAX_COMPILATION_CACHE_DIR wins and nothing else is set; without it
+    the cache sits at the checkout's fixed .jax_cache/."""
+    env_dir = str(tmp_path / "cc") if from_env else None
+    (returned, active), root = _cache_probe(env_dir)
+    expected = env_dir if from_env else os.path.join(root, ".jax_cache")
+    assert returned == active == expected
+
+
+def test_native_library_rebuilds_when_source_newer(tmp_path):
+    import shutil
+
+    from light_transport_tpu.accel import native
+
+    if shutil.which("c++") is None and shutil.which("g++") is None:
+        pytest.skip("no C++ compiler")
+    src = tmp_path / "bvh_builder.cpp"
+    shutil.copy(native._SRC_PATH, src)
+    lib = tmp_path / "liblt_native.so"
+    native.build_library(str(src), str(lib))
+    first = lib.stat().st_mtime_ns
+    native.build_library(str(src), str(lib))  # up to date: no rebuild
+    assert lib.stat().st_mtime_ns == first
+    os.utime(src, ns=(first + 10**9, first + 10**9))  # source now newer
+    native.build_library(str(src), str(lib))
+    assert lib.stat().st_mtime_ns > first
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "bvh_builder.cpp", "liblt_native.so"]  # no temp file left
+
+
+def test_default_lanes_rule():
+    from light_transport_tpu.transport.photon import (
+        MAX_LANES,
+        MIN_LANES,
+        default_lanes,
     )
-    from light_transport_tpu.ops.pallas.photon_kernel import (
-        LANES,
-        ROWS,
-        simulate_pallas,
-    )
-    from light_transport_tpu.scene.medium import LayeredMedium
 
-    m = LayeredMedium.build(
-        [MediumConfig(mu_a=1.0, mu_s=9.0, g=0.7, n=1.37)], n_above=1.0)
-    cfg = PhotonRunConfig(n_photons=40_000, nr=32, nz=32, dr=0.03, dz=0.03,
-                          detector_nx=16, detector_extent=0.5,
-                          vol_nx=8, vol_ny=8, vol_nz=8,
-                          vol_dx=0.12, vol_dy=0.12, vol_dz=0.12,
-                          tally_stride=4, vol_stride=8)
-    kw = dict(lanes=ROWS * LANES, k_steps=16, chunk_blocks=2)
-    ckpt = str(tmp_path / "pallas_run")
-
-    ref = simulate_pallas(m, cfg, seed=5, **kw)
-
-    # "kill" after 2 chunks: bound the host loop, checkpoint every chunk
-    partial = simulate_pallas(m, cfg, seed=5, max_blocks=4,
-                              checkpoint_path=ckpt, checkpoint_every=1,
-                              **kw)
-    assert partial.n_launched < cfg.n_photons  # genuinely interrupted
-    # resume from the snapshot and run to completion
-    resumed = simulate_pallas(m, cfg, seed=5, checkpoint_path=ckpt,
-                              checkpoint_every=1, **kw)
-
-    assert resumed.n_launched == ref.n_launched == cfg.n_photons
-    assert resumed.n_steps == ref.n_steps
-    for name in ("refl_r", "trans_r", "absorb_rz", "detector_xy",
-                 "absorb_xyz"):
-        a = np.asarray(getattr(ref, name))
-        b = np.asarray(getattr(resumed, name))
-        np.testing.assert_array_equal(a, b, err_msg=name)
-    assert float(resumed.absorbed) == float(ref.absorbed)
-
-    # a checkpoint from different arguments must be refused, not resumed
-    fresh = simulate_pallas(m, cfg, seed=6, checkpoint_path=ckpt,
-                            checkpoint_every=1, **kw)
-    assert fresh.n_launched == cfg.n_photons
+    assert default_lanes(1_000) == MIN_LANES
+    assert default_lanes(1_000_000) == MIN_LANES
+    assert default_lanes(10_000_000) == 10_000_000 // 64
+    assert default_lanes(10**9) == MAX_LANES

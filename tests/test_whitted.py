@@ -54,8 +54,8 @@ def test_whitted_indirect_option():
 
 
 def test_whitted_queue_matches_unrolled():
-    """The iterative weighted ray queue (trace_whitted_queue, VERDICT r2
-    item 10) must reproduce the statically unrolled tree at shallow depth
+    """The iterative weighted ray queue (trace_whitted_queue) must
+    reproduce the statically unrolled tree at shallow depth
     (same shading per node; only sub-cutoff subtrees differ) and complete
     a depth-8 render — infeasible for the 2^depth unrolled form — in a
     bounded number of supersteps."""
@@ -171,7 +171,7 @@ def test_whitted_queue_full_tree_glass_depth5():
 
 
 def test_whitted_full_depth_indirect():
-    """indirect_mode='full' (VERDICT r3 item 9): the queue recurses the
+    """indirect_mode='full': the queue recurses the
     hemisphere GI term at every node like src/render_old.py:186-194.  It
     must add energy relative to no-indirect, stay close to the
     primary-only estimate (the recursion's extra terms carry a 0.01*
