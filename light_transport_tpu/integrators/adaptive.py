@@ -83,11 +83,14 @@ def _round(scene, cfg: RenderConfig, key, budget: int,
     # radiance ~200 has huge raw variance but zero display variance —
     # unclipped stats sank the whole budget into light pixels (measured
     # 2.3x WORSE than uniform).  Round 0 (count==0) falls back to uniform
-    # via the explore mix.
+    # via the explore mix.  A one-sample pixel has no variance estimate:
+    # its l2 - l*l is zero only where the backend rounds both products
+    # alike, and a fused multiply-add leaves l*l's rounding error there,
+    # which would then steer the whole allocation.
     n = count.astype(jnp.float32)
     safe_n = jnp.maximum(n, 1.0)
     var = jnp.maximum(sum_l2 / safe_n - (sum_l / safe_n) ** 2, 0.0)
-    gain = jnp.where(count > 0, var / (safe_n * safe_n), 0.0)
+    gain = jnp.where(count > 1, var / (safe_n * safe_n), 0.0)
     norm = jnp.maximum(jnp.sum(gain), 1e-30)
     w = _EXPLORE / n_pix + (1.0 - _EXPLORE) * gain / norm
     w = jnp.where(jnp.sum(gain) > 0, w, jnp.ones_like(w) / n_pix)

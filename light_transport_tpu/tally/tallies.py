@@ -15,6 +15,13 @@ round-1 full-scale artifact recorded 99,999,952 of 1e8).  JAX runs with
 64-bit types disabled by default, so the counter is carried as (2,) f32 with an explicit carry; capacity is
 2^24 * 2^16 = 2^40 (~1.1e12 events), and psum over up to ~256 devices keeps
 both words exact.
+
+The scalar weight totals (absorbed, specular) are compensated two-word
+sums: ``total = hi + lo`` where ``lo`` collects the rounding error of every
+add into ``hi`` (TwoSum).  A plain f32 running sum swamps once the total
+dwarfs one superstep's increment: at 1e9 full_scale photons the absorbed
+total (~7e8, ulp 64) took ~2e3 per superstep, and the energy closure
+drifted by 1.1e-3.
 """
 
 from __future__ import annotations
@@ -76,6 +83,24 @@ def counter_value(c) -> float:
     return float(c[0] * COUNTER_BASE + c[1])
 
 
+def wsum_add(c: jnp.ndarray, x) -> jnp.ndarray:
+    """Add ``x`` to the compensated sum ``c = (hi, lo)``: TwoSum moves the
+    exact rounding error of ``hi + x`` into ``lo``."""
+    hi = c[0] + x
+    x_part = hi - c[0]
+    err = (c[0] - (hi - x_part)) + (x - x_part)
+    return jnp.stack([hi, c[1] + err])
+
+
+def wsum_merge(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
+    return wsum_add(jnp.stack([a[0], a[1] + b[1]]), b[0])
+
+
+def wsum_value(c) -> float:
+    c = np.asarray(c, np.float64)
+    return float(c[0] + c[1])
+
+
 @struct.dataclass
 class PhotonTallies:
     """Raw (unnormalized) accumulated photon weight.
@@ -87,7 +112,7 @@ class PhotonTallies:
     refl_r: jnp.ndarray  # (nr,) diffuse reflectance weight by exit radius
     trans_r: jnp.ndarray  # (nr,) transmittance weight by exit radius
     absorb_rz: jnp.ndarray  # (nr, nz) absorbed weight
-    specular: jnp.ndarray  # () specular reflectance weight at launch
+    specular: jnp.ndarray  # (2,) compensated sum: specular weight at launch
     launched: jnp.ndarray  # (2,) exact hi/lo counter: photons launched
     steps: jnp.ndarray  # (2,) exact hi/lo counter: lane events processed
     # cartesian exit-detector image over the top surface (BASELINE config 5);
@@ -96,10 +121,10 @@ class PhotonTallies:
     # 3-D cartesian absorbed-weight volume (BASELINE config 5's "3D fluence
     # volume"); (vol_nx, vol_ny, vol_nz), or (1, 1, 1) when disabled
     absorb_xyz: jnp.ndarray
-    # exact scalar absorbed-weight accumulator: the (r,z) grid loses tiny
-    # dw increments to f32 swamping in hot cells (adding ~1e-6 to ~1e3),
-    # so energy accounting uses this batched-sum scalar instead
-    absorbed: jnp.ndarray  # ()
+    # compensated absorbed-weight total: the (r,z) grid loses tiny dw
+    # increments to f32 swamping in hot cells (adding ~1e-6 to ~1e3), so
+    # energy accounting uses this (2,) hi/lo sum instead
+    absorbed: jnp.ndarray
 
     @staticmethod
     def zeros(cfg: PhotonRunConfig, dtype=jnp.float32) -> "PhotonTallies":
@@ -109,27 +134,27 @@ class PhotonTallies:
             refl_r=jnp.zeros((cfg.nr,), dtype),
             trans_r=jnp.zeros((cfg.nr,), dtype),
             absorb_rz=jnp.zeros((cfg.nr, cfg.nz), dtype),
-            specular=jnp.zeros((), dtype),
+            specular=jnp.zeros((2,), dtype),
             launched=counter_zero(dtype),
             steps=counter_zero(dtype),
             detector_xy=jnp.zeros((nx, nx), dtype),
             absorb_xyz=jnp.zeros(vshape, dtype),
-            absorbed=jnp.zeros((), dtype),
+            absorbed=jnp.zeros((2,), dtype),
         )
 
     def merge(self, other: "PhotonTallies") -> "PhotonTallies":
-        """Combine two tally sets (counter-aware: the two-word counters use
-        counter_merge, everything else adds)."""
+        """Combine two tally sets (the two-word counters and sums merge
+        word-aware, everything else adds)."""
         return PhotonTallies(
             refl_r=self.refl_r + other.refl_r,
             trans_r=self.trans_r + other.trans_r,
             absorb_rz=self.absorb_rz + other.absorb_rz,
-            specular=self.specular + other.specular,
+            specular=wsum_merge(self.specular, other.specular),
             launched=counter_merge(self.launched, other.launched),
             steps=counter_merge(self.steps, other.steps),
             detector_xy=self.detector_xy + other.detector_xy,
             absorb_xyz=self.absorb_xyz + other.absorb_xyz,
-            absorbed=self.absorbed + other.absorbed,
+            absorbed=wsum_merge(self.absorbed, other.absorbed),
         )
 
     # --- exact counter views -------------------------------------------------
@@ -142,6 +167,10 @@ class PhotonTallies:
     def n_steps(self) -> float:
         return counter_value(self.steps)
 
+    @property
+    def absorbed_weight(self) -> float:
+        return wsum_value(self.absorbed)
+
     # --- normalized views (host-side convenience) ---------------------------
 
     def total_reflectance(self) -> float:
@@ -152,7 +181,7 @@ class PhotonTallies:
         return float(self.trans_r.sum()) / max(self.n_launched, 1.0)
 
     def total_absorption(self) -> float:
-        return float(self.absorbed) / max(self.n_launched, 1.0)
+        return self.absorbed_weight / max(self.n_launched, 1.0)
 
     def total_absorption_grid(self) -> float:
         """Grid-summed absorption (subject to f32 swamping in hot cells;
@@ -160,7 +189,7 @@ class PhotonTallies:
         return float(self.absorb_rz.sum()) / max(self.n_launched, 1.0)
 
     def specular_reflectance(self) -> float:
-        return float(self.specular) / max(self.n_launched, 1.0)
+        return wsum_value(self.specular) / max(self.n_launched, 1.0)
 
     def energy_total(self) -> float:
         """R_sp + R_d + A + T — should be ~1 (exactly 1 in expectation)."""

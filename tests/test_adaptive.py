@@ -100,3 +100,22 @@ def test_adaptive_beats_uniform_at_equal_budget():
                                           rounds=4))
     assert m_ad < 1.15 * m_uni, (m_ad, m_uni)
     assert m_adq < 0.8 * m_uni, (m_adq, m_uni)
+
+
+def test_one_sample_pixels_do_not_steer_allocation():
+    """After the first round every pixel holds one sample and no variance
+    estimate, so the second round must spread its budget uniformly.  The
+    jitted l2 - l*l of a one-sample pixel is not zero where the compiler
+    fuses it into a multiply-add; that residue must not count as
+    variance."""
+    from light_transport_tpu.integrators.adaptive import _round
+
+    scene, cfg = cornell_box_scene(width=12, height=12, spp=4, max_depth=2)
+    n_pix = 12 * 12
+    stats = (jnp.zeros((n_pix, 3)), jnp.zeros((n_pix,)), jnp.zeros((n_pix,)),
+             jnp.zeros((n_pix,), jnp.int32))
+    for r in range(2):
+        stats, alloc = _round(scene, cfg, jax.random.key(3), n_pix, stats,
+                              jnp.asarray(r, jnp.int32), None)
+        np.testing.assert_array_equal(np.asarray(alloc), 1)
+    assert (np.asarray(stats[3]) == 2).all()

@@ -98,3 +98,50 @@ def test_smoke_records_failed_and_raising_phases(capsys):
     assert not any(line.startswith("{") for line in lines)
 
 
+def _unit_quad():
+    # two triangles of the unit square in z=0, sharing the diagonal
+    v0 = np.array([[0.0, 0.0, 0.0], [0.0, 0.0, 0.0]])
+    e1 = np.array([[1.0, 0.0, 0.0], [1.0, 1.0, 0.0]])
+    e2 = np.array([[1.0, 1.0, 0.0], [0.0, 1.0, 0.0]])
+    return v0, e1, e2
+
+
+@pytest.mark.parametrize("x,y,expected", [
+    (0.5, 0.5, True),     # on the shared diagonal
+    (0.25, 0.75, False),  # inside one triangle
+    (0.5, 0.0, False),    # on an outer edge only one triangle has
+    (2.0, 2.0, False),    # a miss
+])
+def test_shared_edge_rays(x, y, expected):
+    o = np.array([[x, y, 1.0]])
+    d = np.array([[0.0, 0.0, -1.0]])
+    assert cs.shared_edge_rays(*_unit_quad(), o, d)[0] == expected
+
+
+def test_shared_edge_rays_takes_the_nearest_hit():
+    v0, e1, e2 = _unit_quad()
+    # a third triangle in front of the quad's diagonal hides it
+    v0 = np.vstack([v0, [[-1.0, -1.0, 0.5]]])
+    e1 = np.vstack([e1, [[4.0, 0.0, 0.0]]])
+    e2 = np.vstack([e2, [[0.0, 4.0, 0.0]]])
+    o = np.array([[0.5, 0.5, 1.0]])
+    d = np.array([[0.0, 0.0, -1.0]])
+    assert not cs.shared_edge_rays(v0, e1, e2, o, d)[0]
+
+
+def test_alloc_agreement():
+    a = np.array([1, 1, 2, 0, 1])
+    assert cs.alloc_agreement(a, a) == {"px_mismatch": 0, "cum_max_diff": 0}
+    b = np.array([1, 2, 1, 0, 1])  # one sample moved one pixel over
+    assert cs.alloc_agreement(a, b) == {"px_mismatch": 2, "cum_max_diff": 1}
+    c = np.array([2, 1, 2, 0, 0])  # one sample moved four pixels over
+    assert cs.alloc_agreement(a, c)["cum_max_diff"] == 1
+    assert cs.alloc_agreement(a, c)["px_mismatch"] == 2
+    with pytest.raises(ValueError):
+        cs.alloc_agreement(a, a[:3])
+
+
+def test_mean_and_stderr():
+    m, se = cs.mean_and_stderr([1.0, 2.0, 3.0, 4.0])
+    assert m == 2.5
+    assert np.isclose(se, np.std([1, 2, 3, 4], ddof=1) / 2)

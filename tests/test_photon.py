@@ -7,6 +7,7 @@ image-MAE estimator cross-check to chi-squared/3-sigma physics parity.
 """
 
 import jax
+import pytest
 import numpy as np
 
 from light_transport_tpu.api import simulate
@@ -186,14 +187,19 @@ def test_drain_compaction_equivalent():
 
 
 def test_max_supersteps_is_exact():
-    """The superstep budget is a hard cap (advisor r3): rounds past it are
-    masked no-ops, so a non-scattering, non-absorbing population (every
-    lane alive every step) executes exactly lanes * max_supersteps live
-    steps even though dispatch rounds come in static multiples of
-    steps_per_batch (and the drain loop batches 4x4 rounds per sync)."""
+    """The superstep budget is a hard cap: rounds past it are masked
+    no-ops, so a non-scattering, non-absorbing population (every lane
+    alive every step) executes exactly lanes * max_supersteps live steps
+    even though dispatch rounds come in static multiples of
+    steps_per_batch (and the drain loop batches 4x4 rounds per sync).
+    The run cannot finish inside the cap, so it raises and hands back the
+    tallies of the work it did."""
     import dataclasses
 
-    from light_transport_tpu.transport.photon import simulate_photons
+    from light_transport_tpu.transport.photon import (
+        SuperstepCapError,
+        simulate_photons,
+    )
 
     # a quota far larger than the cap can consume keeps every lane alive
     # (immediate respawn) -> live steps == lanes * cap exactly
@@ -201,6 +207,49 @@ def test_max_supersteps_is_exact():
         [MediumConfig(mu_a=0.0, mu_s=50.0, g=0.0, n=1.0, thickness=1e6)])
     cfg = PhotonRunConfig(n_photons=512_000, nr=8, nz=8, dr=0.1, dz=0.1)
     cfg = dataclasses.replace(cfg, steps_per_batch=8)
-    t = simulate_photons(m, cfg, jax.random.key(0), lanes=512,
+    with pytest.raises(SuperstepCapError) as err:
+        simulate_photons(m, cfg, jax.random.key(0), lanes=512,
                          max_supersteps=21)  # not a multiple of any round
+    t = err.value.tallies
     assert t.n_steps == 512 * 21, t.n_steps
+    # unlaunched photons plus the lanes still alive (at most 512)
+    left = err.value.photons_left - (512_000 - t.n_launched)
+    assert 0 <= left <= 512, left
+
+
+@pytest.mark.parametrize("compact_drain", [False, True])
+def test_cap_in_drain_raises(compact_drain):
+    """Every photon launched but some still alive at the cap: the drain
+    loop must raise, not return a short run."""
+    from light_transport_tpu.transport.photon import (
+        SuperstepCapError,
+        simulate_photons,
+    )
+
+    m = LayeredMedium.build([MediumConfig(mu_a=0.1, mu_s=90.0, g=0.0,
+                                          n=1.0)])
+    cfg = PhotonRunConfig(n_photons=256, nr=8, nz=8, dr=0.1, dz=0.1)
+    with pytest.raises(SuperstepCapError) as err:
+        simulate_photons(m, cfg, jax.random.key(0), lanes=256,
+                         max_supersteps=40, compact_drain=compact_drain,
+                         min_lanes=64)
+    assert err.value.tallies.n_launched == 256
+    assert 0 < err.value.photons_left <= 256
+    # the same run with the default budget finishes every photon
+    t = simulate_photons(m, cfg, jax.random.key(0), lanes=256)
+    assert t.n_launched == 256
+    assert abs(t.energy_total() - 1.0) < 5e-2
+
+
+def test_default_max_supersteps_rule():
+    from light_transport_tpu.transport.photon import (
+        MIN_SUPERSTEPS,
+        STEPS_PER_PHOTON_BUDGET,
+        default_max_supersteps,
+    )
+
+    assert default_max_supersteps(1_000, 1_000) == MIN_SUPERSTEPS
+    # 1e9 photons on 2^20 lanes: 954 photons per lane
+    assert default_max_supersteps(10**9, 1 << 20) == (
+        STEPS_PER_PHOTON_BUDGET * 954)
+    assert default_max_supersteps(2**31 - 1, 1) == 1 << 30  # int32-safe

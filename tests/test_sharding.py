@@ -34,6 +34,21 @@ def test_sharded_simulate_launches_exact_quota():
     assert abs(res.energy_total() - 1.0) < 1e-2
 
 
+def test_sharded_simulate_cap_raises(monkeypatch):
+    """A device that reaches its superstep cap with photons left fails the
+    run instead of returning short tallies."""
+    from light_transport_tpu.transport import photon
+
+    monkeypatch.setattr(photon, "default_max_supersteps",
+                        lambda n_photons, lanes: 16)
+    cfg = PhotonRunConfig(n_photons=10_001, nr=16, nz=16)
+    with pytest.raises(photon.SuperstepCapError) as err:
+        simulate_sharded(medium(), cfg, jax.random.key(0),
+                         lanes_per_device=64)
+    assert err.value.tallies.n_launched < 10_001
+    assert err.value.photons_left > 0
+
+
 def test_sharded_matches_single_device_statistically():
     n = 40_000
     cfg = PhotonRunConfig(n_photons=n, nr=16, nz=16, dr=0.05, dz=0.05)

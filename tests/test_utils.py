@@ -279,5 +279,5 @@ def test_default_lanes_rule():
 
     assert default_lanes(1_000) == MIN_LANES
     assert default_lanes(1_000_000) == MIN_LANES
-    assert default_lanes(10_000_000) == 10_000_000 // 64
+    assert default_lanes(10_000_000) == 10_000_000 // 16
     assert default_lanes(10**9) == MAX_LANES
